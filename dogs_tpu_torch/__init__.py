@@ -1,0 +1,7 @@
+"""PyTorch + CUDA port of dogs_tpu for NVIDIA Hopper (H100).
+
+Mirrors the layout of `dogs_tpu/` (core, fields, raster, eval, train, data)
+so each module sits at the path of its JAX counterpart. This package imports
+torch and numpy only: never jax, and never a `dogs_tpu` module. Hand-written
+CUDA kernels live under `csrc/` and build at first use into `_build/`.
+"""
