@@ -3,20 +3,38 @@
 
     python3 chip_smoke.py
 
-Drives the port's serving path -- GaussianSplatEvaluator.render / eval ->
-render_tiled -> projection, tile binning, the hand-written blend kernel,
-background compositing, PSNR/SSIM -- on bench.py's model (500k Gaussians,
-SH degree 3, 1152x864, 8 cameras, random weights from a seed), in phases:
+Drives the port's two paths on bench.py's model (500k Gaussians, SH degree
+3, 1152x864, 8 cameras, random weights from a seed): serving
+(GaussianSplatEvaluator.render / eval -> render_tiled -> projection, tile
+binning, the blend forward kernel, PSNR/SSIM) and training (make_train_step
+and GaussianSplatTrainer -> render_tiled forward, L1 + D-SSIM loss, the
+blend backward kernel, the id sort, the segment-sum kernel, the projection
+VJP, sparse Adam), in phases:
 
   1. device   require CUDA; print the card's name and power limit
-  2. build    compile the blend kernel from dogs_tpu_torch/csrc with nvcc
-  3. parity   kernel against its plain PyTorch version on the card: small
-              scenes at atol 3e-4; the 8 bench frames at 99.9% of pixels
-              within 3e-3 (alpha 5e-3) of the frame's max, none past 0.05
+  2. build    compile the three kernels from dogs_tpu_torch/csrc with nvcc,
+              in parallel; print build seconds and ptxas registers/spills/smem
+  3. parity   each kernel against its plain PyTorch version on the card, on
+              small scenes: blend forward at atol 3e-4; blend backward at
+              max-normalized 2e-3 per column (depth_threshold 0 and 4.5);
+              segment sum at max-normalized 1e-5; two launches of the backward kernels
+              give bit-identical outputs. Then the 8 bench frames forward at
+              99.9% of pixels within 3e-3 (alpha 5e-3) of the frame's max,
+              none past 0.05
   4. serve    evaluator renders the 8 cameras for a few rounds and writes
               metrics.json against GT rendered by the plain path (PSNR >= 50)
-  5. report   per-kernel JSON line, then the device JSON line (last line)
+  5. grads    one step's parameter gradients at full width, kernels against
+              plain: per leaf 99.9% of elements within 2e-3 of the leaf's max
+              |g|, none past 0.05
+  6. train    30 full-width make_train_step steps from a perturbed bench
+              model toward plain-path renders of the unperturbed one (loss
+              must fall); ms per step and a per-stage breakdown; then
+              GaussianSplatTrainer from points on a small scene, 30 steps
+              (val PSNR must rise)
+  7. report   per-kernel JSON line, then the device JSON line (last line)
 
+Each path runs with the kernels' launch counts set to 0 just before it and
+read just after; a kernel of the path that was not launched fails the run.
 Any failed phase raises, so the exit code is non-zero. Imports no JAX.
 """
 
@@ -32,8 +50,12 @@ import numpy as np
 import torch
 
 SMALL_ATOL = 3e-4
+GRAD_ATOL = 2e-3  # max-normalized, tests/test_pallas_blend.py:58-61
+SEG_ATOL = 1e-5
 ROUNDS = 3  # serving rounds over the 8 bench cameras
 PSNR_MIN = 50.0
+TRAIN_STEPS = 30
+BENCH_MT = 12  # max_tiles_per_gaussian as bench.py trains the bench model
 
 
 class SmokeFailure(RuntimeError):
@@ -45,16 +67,22 @@ def check(cond: bool, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
-def mostly_close(b: torch.Tensor, a: torch.Tensor, atol: float, frac=0.999, max_out=0.05) -> float:
+def mostly_close(b: torch.Tensor, a: torch.Tensor, atol: float, frac=0.999, max_out=0.05,
+                 name: str = "") -> float:
     """Hardware-parity bar of tests/tpu/test_tpu_raster.py: differences are
     scaled by the reference's max |value|; rounding in exp/log can flip an
     entry across the 1/255 or T < 1e-4 cutoffs at a few pixels, a bug moves
     many. Returns the max absolute difference."""
     d_abs = (b - a).abs()
-    d = d_abs / (a.abs().max() + 1e-8)
+    d = d_abs / (a.abs().max() + 1e-12)
     ok = float((d <= atol).float().mean())
-    check(ok >= frac, f"only {ok:.5f} of pixels within {atol} (need {frac})")
-    check(float(d.max()) <= max_out, f"worst outlier {float(d.max()):.4f} > {max_out}")
+    if ok < frac or float(d.max()) > max_out:
+        worst = torch.topk(d.flatten(), min(5, d.numel()))
+        for v, i in zip(worst.values.tolist(), worst.indices.tolist()):
+            print(f"[fail] {name} outlier at flat index {i}: scaled |d| {v:.4f} "
+                  f"(got {float(b.flatten()[i]):.4e}, plain {float(a.flatten()[i]):.4e})")
+    check(ok >= frac, f"{name}: only {ok:.5f} of elements within {atol} (need {frac})")
+    check(float(d.max()) <= max_out, f"{name}: worst outlier {float(d.max()):.4f} > {max_out}")
     return float(d_abs.max())
 
 
@@ -76,19 +104,39 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; nothing was run", file=sys.stderr)
         return 1
 
+    from dogs_tpu_torch import kernels
     from dogs_tpu_torch.core import look_at_camera, params_from_numpy
+    from dogs_tpu_torch.core.gaussians import PARAM_NAMES
     from dogs_tpu_torch.data import synthetic
     from dogs_tpu_torch.eval.evaluator import EvalConfig, GaussianSplatEvaluator
     from dogs_tpu_torch.fields.model import GaussianModelState
-    from dogs_tpu_torch.raster import blend
+    from dogs_tpu_torch.raster import blend, reduce
     from dogs_tpu_torch.raster.binning import build_tile_bins
     from dogs_tpu_torch.raster.projection import project_gaussians
+    from dogs_tpu_torch.raster.ssim import ssim
     from dogs_tpu_torch.raster.tiled import RasterConfig, render_tiled, sorted_entries
+    from dogs_tpu_torch.train import trainer as trainer_mod
 
     dev = torch.device("cuda", 0)
     # Full-f32 references: matmuls and convolutions without TF32.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    counted = {blend.blend_forward: 0, blend.blend_backward: 0, reduce.sorted_segment_sum: 0}
+
+    def reset_counts():
+        for fn in counted:
+            fn.launches = 0
+
+    def add_counts(path: str, required) -> dict:
+        """Read the counts of a main-path run; fail if a kernel it needs
+        was never launched."""
+        got = {fn.__name__: fn.launches for fn in counted}
+        print(f"[{path}] kernel launches: {got}")
+        for fn in required:
+            check(fn.launches > 0, f"{path}: {fn.__name__} was not launched")
+        for fn in counted:
+            counted[fn] += fn.launches
+        return got
 
     # ---- 1. device ---------------------------------------------------------
     smi = subprocess.run(
@@ -101,11 +149,13 @@ def main() -> int:
 
     # ---- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
-    _, build_log = blend.build_kernel()
-    print(f"[build] blend_forward built/loaded in {time.perf_counter() - t0:.2f} s")
-    for line in build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build] ptxas: {line.strip()}")
+    built = kernels.build_all()
+    print(f"[build] {len(built)} kernels built/loaded in {time.perf_counter() - t0:.2f} s")
+    for name, b in built.items():
+        print(f"[build] {name}: {b.seconds:.2f} s")
+        for line in b.log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[build] {name} ptxas: {line.strip()}")
 
     cfg = RasterConfig()
     plain_cfg = RasterConfig(use_kernel=False)
@@ -115,9 +165,26 @@ def main() -> int:
         bins = build_tile_bins(proj, cam.height, cam.width, max_tiles_per_gaussian=mt)
         ent = sorted_entries(proj, bins)
         nty, ntx = -(-cam.height // blend.TILE), -(-cam.width // blend.TILE)
-        return (ent, bins.tile_starts, nty, ntx, cam.width, cam.height)
+        return (ent, bins.tile_starts, nty, ntx, cam.width, cam.height), bins
 
-    # ---- 3. kernel against plain on the card -------------------------------
+    def random_cot(args, seed):
+        """Cotangent drawn from a seeded generator, Gtot from the plain
+        forward totals, zero past the image edge (where untile crops)."""
+        _, _, nty, ntx, w, h = args
+        g = torch.Generator(device=dev).manual_seed(seed)
+        t = nty * ntx
+        p = torch.arange(256, device=dev)
+        tiles = torch.arange(t, device=dev)[:, None]
+        inside = (((tiles % ntx) * 16 + p % 16) < w) & (((tiles // ntx) * 16 + p // 16) < h)
+        return blend.backward_cotangent(
+            blend.blend_forward_reference(*args),
+            torch.randn((t, 256, 3), generator=g, device=dev) * inside[..., None],
+            torch.randn((t, 256), generator=g, device=dev) * inside,
+            torch.randn((t, 256), generator=g, device=dev) * inside,
+            torch.zeros(3, device=dev),
+        )
+
+    # ---- 3. kernels against plain on the card ------------------------------
     small = {
         "random_seed0": (synthetic.random_scene_arrays(seed=0), synthetic.RANDOM_SCENE_VIEW, 2),
         "random_seed3": (synthetic.random_scene_arrays(seed=3), synthetic.RANDOM_SCENE_VIEW, 2),
@@ -130,20 +197,56 @@ def main() -> int:
             dict(synthetic.RANDOM_SCENE_VIEW, width=200, height=130, fx=120.0, fy=120.0), 2,
         ),
     }
-    max_err = 0.0
+    max_err = dict.fromkeys(("fwd", "bwd", "seg"), 0.0)
     with torch.no_grad():
         for name, (arrays, view, deg) in small.items():
             params = params_from_numpy(arrays, dev)
-            args = frame_inputs(params, look_at_camera(**view, device=dev), deg, mt=36)
+            args, bins = frame_inputs(params, look_at_camera(**view, device=dev), deg, mt=36)
             got = blend.blend_forward(*args)
             want = blend.blend_forward_reference(*args)
             torch.cuda.synchronize()
             check(bool(torch.isfinite(got).all()), f"{name}: non-finite kernel output")
             err = float((got - want).abs().max())
             empty = int((args[1][1:] == args[1][:-1]).sum())
-            print(f"[parity] {name}: K={args[0].shape[0]} empty_tiles={empty} max|d|={err:.3e}")
-            check(err <= SMALL_ATOL, f"{name}: kernel vs plain max|d| {err} > {SMALL_ATOL}")
-            max_err = max(max_err, err)
+            print(f"[parity] {name} forward: K={args[0].shape[0]} empty_tiles={empty} max|d|={err:.3e}")
+            check(err <= SMALL_ATOL, f"{name}: forward kernel vs plain max|d| {err} > {SMALL_ATOL}")
+            max_err["fwd"] = max(max_err["fwd"], err)
+
+            cot = random_cot(args, seed=7)
+            for thr in (0.0, 4.5):
+                kw = dict(depth_threshold=thr)
+                d1 = blend.blend_backward(args[0], args[1], cot, *args[2:], **kw)
+                d2 = blend.blend_backward(args[0], args[1], cot, *args[2:], **kw)
+                dref = blend.blend_backward_reference(args[0], args[1], cot, *args[2:], **kw)
+                torch.cuda.synchronize()
+                check(bool(torch.isfinite(d1).all()), f"{name}: non-finite backward output")
+                check(torch.equal(d1, d2), f"{name}: blend_backward is not deterministic")
+                check(not d1[:, 10:].any(), f"{name}: backward wrote columns 10-15")
+                worst = 0.0
+                for c in range(blend.N_GRADS):
+                    scale = float(dref[:, c].abs().max()) + 1e-6
+                    worst = max(worst, float((d1[:, c] - dref[:, c]).abs().max()) / scale)
+                err = float((d1 - dref).abs().max())
+                print(f"[parity] {name} backward thr={thr}: max|d|={err:.3e} "
+                      f"max column-normalized |d|={worst:.3e}")
+                check(worst <= GRAD_ATOL, f"{name}: backward kernel vs plain {worst} > {GRAD_ATOL}")
+                max_err["bwd"] = max(max_err["bwd"], err)
+
+            ids, vals = reduce.sort_by_gaussian(d1, bins.sorted_idx, "f32")
+            n_out = params.capacity
+            s1 = reduce.sorted_segment_sum(ids, vals, n_out)
+            s2 = reduce.sorted_segment_sum(ids, vals, n_out)
+            sref = reduce.sorted_segment_sum_reference(ids, vals, n_out)
+            torch.cuda.synchronize()
+            check(torch.equal(s1, s2), f"{name}: sorted_segment_sum is not deterministic")
+            err = float((s1 - sref).abs().max())
+            # Both sum the same f32 rows in another order (index_add_ uses
+            # atomics): a few ulps of the largest sum, so the bar is on
+            # columns scaled by their max |value|.
+            scaled = float(((s1 - sref).abs() / (sref.abs().amax(dim=0) + 1e-12)).max())
+            print(f"[parity] {name} segment sum: max|d|={err:.3e} max column-normalized |d|={scaled:.3e}")
+            check(scaled <= SEG_ATOL, f"{name}: segment-sum kernel vs plain {scaled} > {SEG_ATOL}")
+            max_err["seg"] = max(max_err["seg"], err)
 
         params = synthetic.bench_scene(device=dev)
         n = params.capacity
@@ -154,18 +257,18 @@ def main() -> int:
             out = render_tiled(params, cam, cfg)
             torch.cuda.synchronize()
             errs = {
-                "image": mostly_close(out.image, ref.image, 3e-3),
-                "alpha": mostly_close(out.alpha, ref.alpha, 5e-3),
-                "invdepth": mostly_close(out.invdepth, ref.invdepth, 3e-3),
+                "image": mostly_close(out.image, ref.image, 3e-3, name="image"),
+                "alpha": mostly_close(out.alpha, ref.alpha, 5e-3, name="alpha"),
+                "invdepth": mostly_close(out.invdepth, ref.invdepth, 3e-3, name="invdepth"),
             }
             check(tuple(out.image.shape) == (cam.height, cam.width, 3), "bad image shape")
             check(bool(torch.isfinite(out.image).all()), f"bench cam {i}: non-finite image")
-            max_err = max(max_err, *errs.values())
+            max_err["fwd"] = max(max_err["fwd"], *errs.values())
             print(f"[parity] bench cam {i}: K={out.bin_valid} truncated={out.bin_rect_truncated} "
                   + " ".join(f"max|d| {k}={v:.3e}" for k, v in errs.items()))
             gts.append(torch.clamp(ref.image, 0.0, 1.0))
 
-    # ---- 4. serve ----------------------------------------------------------
+    # ---- 4. serve (main path 1) --------------------------------------------
     model = GaussianModelState(
         params=params,
         alive=torch.ones(n, dtype=torch.bool, device=dev),
@@ -178,7 +281,7 @@ def main() -> int:
         evaluator = GaussianSplatEvaluator(
             model, cfg, EvalConfig(output_dir=tmp, save_images=False)
         )
-        blend.blend_forward.launches = 0
+        reset_counts()
         frame_ms = []
         for _ in range(ROUNDS):
             for cam in cams:
@@ -188,12 +291,15 @@ def main() -> int:
                 torch.cuda.synchronize()
                 frame_ms.append((time.perf_counter() - t0) * 1e3)
         metrics = evaluator.eval(cams, gts, split="val")
-        launches = blend.blend_forward.launches
+        serve_counts = add_counts("serve", [blend.blend_forward])
         with open(f"{tmp}/val/metrics.json") as f:
             written = json.load(f)
-    check(launches == (ROUNDS + 1) * len(cams),
-          f"blend kernel launched {launches} times, expected {(ROUNDS + 1) * len(cams)}")
-    check(tuple(img.shape) == (864, 1152, 3) and bool(torch.isfinite(img).all()), "bad render")
+    check(serve_counts["blend_forward"] == (ROUNDS + 1) * len(cams),
+          f"blend kernel launched {serve_counts['blend_forward']} times, "
+          f"expected {(ROUNDS + 1) * len(cams)}")
+    frame = (synthetic.BENCH_HEIGHT, synthetic.BENCH_WIDTH, 3)
+    check(tuple(img.shape) == frame and bool(torch.isfinite(img).all()), "bad render")
+    check(not img.requires_grad, "the evaluator recorded an autograd graph")
     mean = metrics["mean"]
     check(written["mean"] == mean, "metrics.json differs from the returned metrics")
     check(mean["psnr"] >= PSNR_MIN, f"eval PSNR {mean['psnr']:.2f} dB < {PSNR_MIN}")
@@ -204,27 +310,203 @@ def main() -> int:
           f"eval psnr {mean['psnr']:.2f} dB ssim {mean['ssim']:.5f} "
           f"render_time {mean['render_time'] * 1e3:.2f} ms; peak memory {peak_mb:.0f} MiB")
 
-    # Blend alone on bench camera 0 (after the counted run: not counted).
+    # ---- 5. full-width gradients, kernels against plain --------------------
+    # The bench model with anisotropic scales (the bench scene's are
+    # isotropic, which makes quaternion gradients pure rounding noise),
+    # perturbed by a numpy draw; it also starts the training phase.
+    rng = np.random.RandomState(2)
+    arrays = synthetic.bench_scene_arrays(n, seed=0)
+    arrays["log_scale"] = arrays["log_scale"] + rng.normal(0.0, 0.2, (n, 3)).astype(np.float32)
     with torch.no_grad():
-        args = frame_inputs(params, cams[0], 3)
-        kernel_ms = cuda_ms(lambda: blend.blend_forward(*args), iters=50)
-        plain_ms = cuda_ms(lambda: blend.blend_forward_reference(*args), iters=3)
-        kernel_ms_2 = cuda_ms(lambda: blend.blend_forward(*args), iters=50)
-        plain_ms_2 = cuda_ms(lambda: blend.blend_forward_reference(*args), iters=3)
-    print(f"[serve] blend on bench cam 0: K={args[0].shape[0]} entries, kernel "
-          f"{kernel_ms:.3f}/{kernel_ms_2:.3f} ms, plain {plain_ms:.3f}/{plain_ms_2:.3f} ms")
+        targets = [torch.clamp(render_tiled(params_from_numpy(arrays, dev), c, plain_cfg).image, 0, 1)
+                   for c in cams]
+    arrays["feat_dc"] = arrays["feat_dc"] + rng.normal(0.0, 0.3, (n, 1, 3)).astype(np.float32)
+    arrays["logit_opacity"] = arrays["logit_opacity"] + rng.normal(0.0, 0.5, (n, 1)).astype(np.float32)
+    arrays["xyz"] = arrays["xyz"] + rng.normal(0.0, 0.002, (n, 3)).astype(np.float32)
+    bench_rng = np.random.RandomState(1)  # bench.py's GT draw
+    bench_gts = [torch.as_tensor(bench_rng.rand(*frame).astype(np.float32), device=dev) for _ in cams]
 
-    # ---- 5. report ---------------------------------------------------------
-    print(json.dumps({"kernels": [{
-        "name": "blend_forward",
-        "route": "cuda",
-        "source": "dogs_tpu_torch/csrc/blend_forward.cu",
-        "replaces": "dogs_tpu/raster/pallas_stream.py:241",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": min(kernel_ms, kernel_ms_2),
-        "plain_ms": min(plain_ms, plain_ms_2),
-    }]}))
+    def step_grads(p, cam, gt, rcfg):
+        offset = torch.zeros((n, 2), device=dev, requires_grad=True)
+        out = render_tiled(p, cam, rcfg, means2d_offset=offset)
+        img = torch.clamp(out.image, 0.0, 1.0)
+        loss = 0.8 * torch.mean(torch.abs(img - gt)) + 0.2 * (1.0 - ssim(img, gt))
+        return torch.autograd.grad(loss, [getattr(p, k) for k in PARAM_NAMES] + [offset])
+
+    kcfg = RasterConfig(max_tiles_per_gaussian=BENCH_MT)
+    kplain = RasterConfig(max_tiles_per_gaussian=BENCH_MT, use_kernel=False)
+    p_grad = params_from_numpy(arrays, dev)
+    g_kernel = step_grads(p_grad, cams[0], bench_gts[0], kcfg)
+    g_plain = step_grads(p_grad, cams[0], bench_gts[0], kplain)
+    torch.cuda.synchronize()
+    del p_grad
+    for name, gk, gp in zip(PARAM_NAMES + ("means2d_offset",), g_kernel, g_plain):
+        check(bool(torch.isfinite(gk).all()), f"{name}: non-finite kernel gradient")
+        err = mostly_close(gk, gp, GRAD_ATOL, name=f"grad {name}")
+        d = (gk - gp).abs() / (gp.abs().max() + 1e-12)
+        worst = torch.topk(d.flatten(), 3)
+        print(f"[grads] {name}: max|g| {float(gp.abs().max()):.3e} max|d| {err:.3e} "
+              f"share within {GRAD_ATOL}: {float((d <= GRAD_ATOL).float().mean()):.6f}; worst scaled "
+              + ", ".join(f"{v:.2e}@{i}" for v, i in zip(worst.values.tolist(), worst.indices.tolist())))
+    del g_kernel, g_plain
+
+    # ---- 6. train (main path 2): make_train_step at full width -------------
+    tcfg = trainer_mod.TrainerConfig()
+    train_model = GaussianModelState(
+        params=params_from_numpy(arrays, dev),
+        alive=torch.ones(n, dtype=torch.bool, device=dev),
+        grad_accum=torch.zeros(n, device=dev),
+        denom=torch.zeros(n, device=dev),
+        max_radii2d=torch.zeros(n, device=dev),
+    )
+    ts = trainer_mod.train_state_from_model(train_model, len(cams), tcfg)
+    step = trainer_mod.make_train_step(tcfg, kcfg, spatial_lr_scale=5.0, active_sh_degree=3,
+                                       background=(0.0, 0.0, 0.0))
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    losses, step_ms = [], []
+    for i in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ts, m = step(ts, cams[i % len(cams)], targets[i % len(cams)])
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+        check(np.isfinite(losses[-1]), f"train step {i}: non-finite loss")
+    add_counts("train", list(counted))
+    for fn in counted:
+        check(fn.launches == TRAIN_STEPS, f"train: {fn.__name__} launched {fn.launches} times, "
+              f"expected one per step ({TRAIN_STEPS})")
+    train_peak_mb = torch.cuda.max_memory_allocated(dev) / 2**20
+    first, last = np.mean(losses[:len(cams)]), np.mean(losses[-len(cams):])
+    print(f"[train] {TRAIN_STEPS} steps at 500k/SH3/1152x864: loss {losses[0]:.5f} -> {losses[-1]:.5f}; "
+          f"mean over first 8 {first:.5f}, last 8 {last:.5f}; n_visible {int(m['n_visible'])}, "
+          f"bin_valid {int(m['bin_valid'])}")
+    check(last < first, f"train loss did not fall: first 8 mean {first}, last 8 mean {last}")
+    warm_ms = step_ms[len(cams):]
+    print(f"[train] ms/step median {np.median(warm_ms):.2f} min {min(warm_ms):.2f} "
+          f"(first round median {np.median(step_ms[:len(cams)]):.2f}); peak memory {train_peak_mb:.0f} MiB")
+
+    # Per-stage breakdown: CUDA events at the stage boundaries of 8 more steps
+    # (after the counted run). Device time between consecutive events.
+    marks: list[tuple[str, torch.cuda.Event]] = []
+
+    def mark(label):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        marks.append((label, e))
+
+    def wrapped(fn, before, after):
+        def run(*a, **kw):
+            mark(before)
+            out = fn(*a, **kw)
+            mark(after)
+            return out
+        if hasattr(fn, "launches"):  # the kernel wrapper counts through its module name
+            run.launches = fn.launches
+        return run
+
+    originals = (trainer_mod.render_tiled, blend.blend_backward, reduce.sort_by_gaussian,
+                 reduce.sorted_segment_sum, trainer_mod.sparse_adam_step)
+    trainer_mod.render_tiled = wrapped(originals[0], "start", "render")
+    blend.blend_backward = wrapped(originals[1], "loss fwd+bwd", "K2")
+    reduce.sort_by_gaussian = wrapped(originals[2], "-", "id sort")
+    reduce.sorted_segment_sum = wrapped(originals[3], "-", "K3")
+    trainer_mod.sparse_adam_step = wrapped(originals[4], "projection VJP", "sparse Adam")
+    stages: dict[str, list[float]] = {}
+    try:
+        for i in range(len(cams)):
+            marks.clear()
+            ts, m = step(ts, cams[i], targets[i])
+            mark("stats+metrics")
+            torch.cuda.synchronize()
+            for (_, e0), (label, e1) in zip(marks, marks[1:]):
+                if label != "-":
+                    stages.setdefault(label, []).append(e0.elapsed_time(e1))
+    finally:
+        (trainer_mod.render_tiled, blend.blend_backward, reduce.sort_by_gaussian,
+         reduce.sorted_segment_sum, trainer_mod.sparse_adam_step) = originals
+    names = {"render": "forward render (project, bin, K1)", "loss fwd+bwd": "loss fwd + SSIM/L1 bwd",
+             "K2": "blend backward K2", "id sort": "id sort + row gather",
+             "K3": "segment sum K3", "projection VJP": "projection + SH VJP",
+             "sparse Adam": "sparse Adam", "stats+metrics": "densify stats + metrics"}
+    total = sum(np.median(v) for v in stages.values())
+    for label, v in stages.items():
+        print(f"[train] stage {names[label]:34s} median {np.median(v):8.3f} ms "
+              f"({100 * np.median(v) / total:4.1f}%)")
+    print(f"[train] stage sum {total:.3f} ms")
+
+    # Each kernel alone against its plain version on bench camera 0: the
+    # forward at the serving shapes (as PR 1 timed it), then all three at
+    # the training shapes (max_tiles_per_gaussian 12).
+    with torch.no_grad():
+        args, _ = frame_inputs(params, cams[0], 3)
+        serve_ms = [cuda_ms(lambda: blend.blend_forward(*args), 50) for _ in range(2)]
+        print(f"[kernels] blend_forward on bench cam 0 at serving shapes (K={args[0].shape[0]}): "
+              f"kernel {serve_ms[0]:.3f}/{serve_ms[1]:.3f} ms")
+        args, bins = frame_inputs(params, cams[0], 3, mt=BENCH_MT)
+        cot = random_cot(args, seed=11)
+        d_ent = blend.blend_backward(args[0], args[1], cot, *args[2:])
+        ids, vals = reduce.sort_by_gaussian(d_ent, bins.sorted_idx, "f32")
+        timing = {
+            "blend_forward": (lambda: blend.blend_forward(*args),
+                              lambda: blend.blend_forward_reference(*args)),
+            "blend_backward": (lambda: blend.blend_backward(args[0], args[1], cot, *args[2:]),
+                               lambda: blend.blend_backward_reference(args[0], args[1], cot, *args[2:])),
+            "sorted_segment_sum": (lambda: reduce.sorted_segment_sum(ids, vals, n),
+                                   lambda: reduce.sorted_segment_sum_reference(ids, vals, n)),
+        }
+        kernel_ms, plain_ms = {}, {}
+        for name, (kfn, pfn) in timing.items():
+            many = 3 if name != "sorted_segment_sum" else 20
+            ms = [cuda_ms(kfn, 50), cuda_ms(pfn, many), cuda_ms(kfn, 50), cuda_ms(pfn, many)]
+            kernel_ms[name], plain_ms[name] = min(ms[0], ms[2]), min(ms[1], ms[3])
+            print(f"[kernels] {name} on bench cam 0 (K={args[0].shape[0]}): kernel "
+                  f"{ms[0]:.3f}/{ms[2]:.3f} ms, plain {ms[1]:.3f}/{ms[3]:.3f} ms")
+    del ts, train_model, step
+
+    # ---- 6b. train (main path 3): the host loop from points ----------------
+    scene = synthetic.make_scene(n_gaussians=80, n_cams=10, width=64, height=64, seed=3, device=dev)
+    hcfg = trainer_mod.TrainerConfig(
+        max_iterations=400, position_lr_max_steps=400, densify_start_iter=1000, densify_end_iter=2000,
+        opacity_reset_interval=10000, sh_increase_interval=10, max_sh_degree=2, min_capacity=128,
+    )
+    loop = trainer_mod.GaussianSplatTrainer(
+        scene.cameras[:8], scene.images[:8], scene.points, scene.colors, hcfg, RasterConfig(),
+        val_cameras=scene.cameras[8:], val_images=scene.images[8:], seed=42, device=dev,
+    )
+    val0 = loop.validate()["val_psnr"]
+    reset_counts()
+    loop.train(num_iterations=TRAIN_STEPS, log_every=10)
+    add_counts("host loop", list(counted))
+    val1 = loop.validate()["val_psnr"]
+    print(f"[host loop] {TRAIN_STEPS} steps, 80 Gaussians at 64x64: val PSNR {val0:.3f} -> {val1:.3f} dB; "
+          f"train psnr " + ", ".join(f"{m['psnr']:.2f}@{m['step']}" for m in loop.metrics_history))
+    check(val1 > val0 + 1.0, f"host loop: val PSNR {val0:.3f} -> {val1:.3f} did not rise by 1 dB")
+
+    # ---- 7. report ---------------------------------------------------------
+    sources = {
+        "blend_forward": ("dogs_tpu_torch/csrc/blend_forward.cu", "dogs_tpu/raster/pallas_stream.py:241",
+                          "fwd"),
+        "blend_backward": ("dogs_tpu_torch/csrc/blend_backward.cu", "dogs_tpu/raster/pallas_stream.py:525",
+                           "bwd"),
+        "sorted_segment_sum": ("dogs_tpu_torch/csrc/segment_sum.cu", "dogs_tpu/raster/pallas_reduce.py:136",
+                               "seg"),
+    }
+    totals = {fn.__name__: c for fn, c in counted.items()}
+    print(json.dumps({"kernels": [
+        {
+            "name": name,
+            "route": "cuda",
+            "source": src,
+            "replaces": tpu,
+            "launches": totals[name],
+            "max_abs_err": max_err[key],
+            "ms": kernel_ms[name],
+            "plain_ms": plain_ms[name],
+        }
+        for name, (src, tpu, key) in sources.items()
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -104,3 +104,30 @@ def params_from_numpy(
             for k in PARAM_NAMES
         }
     )
+
+
+def round_up_capacity(n: int, min_capacity: int = 1024) -> int:
+    """Capacity as the smallest power-of-two multiple of `min_capacity`
+    that holds `n` (dogs_tpu buckets capacity this way; the port keeps the
+    buckets so that checkpoints and step comparisons line up slot for slot)."""
+    c = max(min_capacity, 1)
+    while c < n:
+        c *= 2
+    return c
+
+
+def pad_to_capacity(params: GaussianParams, capacity: int) -> GaussianParams:
+    """New parameters grown to `capacity` slots; the new slots get the inert
+    defaults of `empty_params`."""
+    cur = params.capacity
+    if capacity < cur:
+        raise ValueError(f"cannot pad {cur} slots down to {capacity}")
+    if capacity == cur:
+        return params
+    pad = empty_params(capacity - cur, params.max_sh_degree, params.xyz.device)
+    return GaussianParams(
+        **{
+            k: torch.cat([getattr(params, k).detach(), getattr(pad, k).detach()], dim=0)
+            for k in PARAM_NAMES
+        }
+    )

@@ -16,11 +16,12 @@
 // Transmittance stays in log space as the JAX package keeps it: a linear
 // T *= (1 - alpha) rounds differently and flips the stop decision at some
 // pixels. Accumulation is plain f32 FMA (the TPU needed Precision.HIGHEST
-// matmuls to get the same).
+// matmuls to get the same). alpha comes from blend_common.cuh, which the
+// backward (blend_backward.cu) shares, so both take the same stop decision.
 //
 // Bound: per entry each pixel spends ~20 flops and up to three
 // transcendental calls (expf of the Gaussian; log1pf and expf for the
-// transmittance) on 40 bytes staged once per CTA in shared memory, so the
+// transmittance) on 48 bytes staged once per CTA in shared memory, so the
 // kernel is bound by the issue rate of the FMA/SFU pipes, not by device
 // memory: each entry row is read from HBM once, by its one tile. The design keeps it
 // simple: chunks of 256 entries staged cooperatively (one row per thread),
@@ -32,25 +33,19 @@
 // Output: (n_tiles, 5, 256) f32, rows R, G, B, A, invD, no background.
 // Empty tiles and pixels past the image edge are written as zeros.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "blend_common.cuh"
 
 namespace {
 
-constexpr int kTile = 16;
-constexpr int kPix = kTile * kTile;  // threads per CTA, one per pixel
-constexpr int kChunk = kPix;         // entries staged per round, one per thread
-constexpr int kEntWidth = 16;
+using namespace dogs;
+
+constexpr int kChunk = kPix;  // entries staged per round, one per thread
 constexpr int kOutRows = 5;
-constexpr float kAlphaMin = 1.0f / 255.0f;
-constexpr float kLogTMin = -9.210340371976182f;  // log(1e-4)
 
 __global__ void __launch_bounds__(kPix)
 blend_forward_kernel(const float* __restrict__ ent, const int32_t* __restrict__ starts,
                      float* __restrict__ out, int n_tiles_x, int width, int height) {
-  __shared__ float2 s_mu[kChunk];     // mux, muy
-  __shared__ float4 s_conic[kChunk];  // ca, cb, cc, opa
-  __shared__ float4 s_color[kChunk];  // r, g, b, invd
+  __shared__ Entry s_ent[kChunk];
 
   const int t = blockIdx.x;
   const int p = threadIdx.x;
@@ -68,25 +63,13 @@ blend_forward_kernel(const float* __restrict__ ent, const int32_t* __restrict__ 
   for (int base = start; base < stop; base += kChunk) {
     // Barrier before refilling shared memory; exit once every pixel is done.
     if (__syncthreads_and(done)) break;
-    const int e = base + p;
-    if (e < stop) {
-      const float4* row = reinterpret_cast<const float4*>(ent + static_cast<size_t>(e) * kEntWidth);
-      const float4 c0 = row[0];  // mux muy ca cb
-      const float4 c1 = row[1];  // cc r g b
-      const float4 c2 = row[2];  // opa invd depth one
-      s_mu[p] = make_float2(c0.x, c0.y);
-      s_conic[p] = make_float4(c0.z, c0.w, c1.x, c2.x);
-      s_color[p] = make_float4(c1.y, c1.z, c1.w, c2.y);
-    }
+    if (base + p < stop) s_ent[p] = load_entry(ent, base + p);
     __syncthreads();
     const int n = min(kChunk, stop - base);
     for (int j = 0; j < n && !done; ++j) {
-      const float2 mu = s_mu[j];
-      const float4 co = s_conic[j];
-      const float dx = px - mu.x;
-      const float dy = py - mu.y;
-      const float power = -0.5f * (co.x * dx * dx + co.z * dy * dy) - co.y * dx * dy;
-      const float alpha = fminf(0.99f, co.w * expf(fminf(power, 0.0f)));
+      const Entry& s = s_ent[j];
+      float expp;
+      const float alpha = entry_alpha(s, px - s.mux, py - s.muy, &expp);
       if (alpha < kAlphaMin) continue;
       const float log_t_incl = log_t + log1pf(-alpha);
       if (log_t_incl < kLogTMin) {
@@ -94,12 +77,11 @@ blend_forward_kernel(const float* __restrict__ ent, const int32_t* __restrict__ 
         break;
       }
       const float w = alpha * expf(log_t);
-      const float4 col = s_color[j];
-      acc_r = fmaf(w, col.x, acc_r);
-      acc_g = fmaf(w, col.y, acc_g);
-      acc_b = fmaf(w, col.z, acc_b);
+      acc_r = fmaf(w, s.r, acc_r);
+      acc_g = fmaf(w, s.g, acc_g);
+      acc_b = fmaf(w, s.b, acc_b);
       acc_a += w;
-      acc_d = fmaf(w, col.w, acc_d);
+      acc_d = fmaf(w, s.invd, acc_d);
       log_t = log_t_incl;
     }
   }
@@ -119,7 +101,7 @@ extern "C" int dogs_blend_forward(const void* ent, const void* starts, void* out
                                   int n_tiles_x, int n_tiles, int width, int height,
                                   void* stream) {
   if (n_tiles <= 0) return static_cast<int>(cudaSuccess);
-  blend_forward_kernel<<<n_tiles, kPix, 0, static_cast<cudaStream_t>(stream)>>>(
+  blend_forward_kernel<<<n_tiles, dogs::kPix, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(ent), static_cast<const int32_t*>(starts),
       static_cast<float*>(out), n_tiles_x, width, height);
   return static_cast<int>(cudaGetLastError());

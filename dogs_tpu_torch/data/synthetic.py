@@ -96,7 +96,8 @@ def make_scene(
     cams = ring_cameras(
         n_cams, radius=4.0, width=width, height=height, focal=width * 0.9, device=device
     )
-    images = [render_tiled(gt, c, cfg, active_sh_degree=max_sh_degree).image for c in cams]
+    with torch.no_grad():
+        images = [render_tiled(gt, c, cfg, active_sh_degree=max_sh_degree).image for c in cams]
     rng = np.random.RandomState(seed + 1)
     xyz = gt.xyz.detach().cpu().numpy()
     points = xyz + rng.randn(n_gaussians, 3).astype(np.float32) * 0.05

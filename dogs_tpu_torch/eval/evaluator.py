@@ -60,8 +60,10 @@ class GaussianSplatEvaluator:
         self.cfg = cfg
         self.device = model.params.xyz.device
 
+    @torch.no_grad()
     def render(self, camera: Camera) -> torch.Tensor:
-        """(H, W, 3) image clipped to [0, 1], on the model's device."""
+        """(H, W, 3) image clipped to [0, 1], on the model's device. Records
+        no autograd graph: the parameters are leaves that require grad."""
         out = render_tiled(
             self.model.params,
             camera,

@@ -1,94 +1,57 @@
-"""Tile alpha-blend forward: the Hopper kernel and its plain PyTorch version.
+"""Tile alpha-blend, forward and backward: the Hopper kernels and their plain
+PyTorch versions.
 
-Port of dogs_tpu/raster/pallas_stream.py:blend_forward_stream (and of the
-per-tile pallas_blend.py:blend_forward_pallas, same contract). The kernel
-(csrc/blend_forward.cu) runs one 256-thread CTA per 16x16 tile; its header
-says what it computes and what bounds it. `blend_forward_reference` computes
-the same thing the way the XLA path of dogs_tpu/raster/tiled.py does (tile
-batches, chunked log-space cumsum, batch early exit), vectorized in torch.
+Port of dogs_tpu/raster/pallas_stream.py:blend_forward_stream and
+:blend_backward_stream (and of the per-tile pallas_blend.py twins, same
+contracts). The kernels (csrc/blend_forward.cu, csrc/blend_backward.cu) run
+one 256-thread CTA per 16x16 tile; their headers say what they compute and
+what bounds them. The `*_reference` functions compute the same things the way
+the XLA path of dogs_tpu/raster/tiled.py does (tile batches, chunked
+log-space cumsum, batch early exit), vectorized in torch.
 
-Contract shared by both:
+Contracts:
   ent     (K, 16) f32 entry matrix in sorted order (ENT_* columns)
   starts  (n_tiles + 1,) int32 tile ranges into `ent`
-  returns (n_tiles, 5, 256) f32: rows R, G, B, A, invD per pixel of each
+  forward -> (n_tiles, 5, 256) f32: rows R, G, B, A, invD per pixel of each
           tile, no background; empty tiles and pixels past width/height are 0.
+  cot     (n_tiles, 8, 256) f32 backward input: rows gC r, g, b,
+          gA_eff = cot_a - bg . cot_img, gD, Gtot = gC.C + gA_eff A + gD D
+          (the forward totals enter here), 0, 0
+  backward -> (K, 16) f32 per-entry gradients: columns d_mux, d_muy, d_ca,
+          d_cb, d_cc, d_r, d_g, d_b, d_opa, d_invd (dogs_tpu/raster/tiled.py:310),
+          columns 10-15 zero; with depth_threshold > 0 the mean gradients are
+          scaled by min(1, (depth / depth_threshold)^2).
 
-`blend_forward` launches the kernel and accepts CUDA tensors only;
-`render_tiled` takes the plain version for CPU tensors. The kernel builds at
-first use with nvcc from the repo's source into `dogs_tpu_torch/_build/`,
-cached by a hash of the source.
+`blend_forward` / `blend_backward` launch the kernels and accept CUDA tensors
+only; `render_tiled` takes the plain versions for CPU tensors. The kernels
+build at first use (dogs_tpu_torch/kernels.py).
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
-import hashlib
 import math
-import os
-import subprocess
-import tempfile
-from pathlib import Path
 
 import torch
 
-# Entry-matrix columns (row-major (K, ENT_WIDTH)); the kernel reads 0-9.
+from dogs_tpu_torch import kernels
+
+# Entry-matrix columns (row-major (K, ENT_WIDTH)); the kernels read 0-10.
 ENT_MUX, ENT_MUY, ENT_CA, ENT_CB, ENT_CC, ENT_R, ENT_G, ENT_B, ENT_OPA, ENT_INVD, ENT_DEPTH = range(11)
 ENT_WIDTH = 16
+N_GRADS = 10  # live gradient columns of the backward (ENT_MUX .. ENT_INVD)
 OUT_ROWS = 5  # R, G, B, A, invD
-TILE = 16  # the kernel's tile edge: one thread per pixel of a 16x16 tile
+COT_ROWS = 8  # gC r, g, b, gA_eff, gD, Gtot, 0, 0
+TILE = 16  # the kernels' tile edge: one thread per pixel of a 16x16 tile
 LOG_TMIN = math.log(1e-4)
 ALPHA_MIN = 1.0 / 255.0
 # Plain blend schedule: tiles per batch and entries per step. Each step holds
 # a few (batch, chunk, 256) f32 arrays, ~8 MB each.
 _REF_TILE_BATCH, _REF_CHUNK = 256, 32
 
-_PKG = Path(__file__).resolve().parents[1]
-KERNEL_SOURCE = _PKG / "csrc" / "blend_forward.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
-)
-
-
-@functools.lru_cache(maxsize=1)
-def build_kernel() -> tuple[ctypes.CDLL, str]:
-    """Compile (once per source hash) and load the kernel library.
-
-    Returns (library, nvcc's output, which holds the -Xptxas -v report).
-    Raises if nvcc is missing or the build fails."""
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    src = KERNEL_SOURCE.read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib_path = BUILD_DIR / f"blend_forward_{digest}.so"
-    log_path = lib_path.with_suffix(".log")
-    if not lib_path.exists():
-        nvcc = Path(CUDA_HOME or "") / "bin" / "nvcc"
-        if CUDA_HOME is None or not nvcc.exists():
-            raise RuntimeError(f"no CUDA toolkit with nvcc found: cannot build {KERNEL_SOURCE}")
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        proc = subprocess.run(
-            [str(nvcc), *NVCC_FLAGS, "-o", tmp, str(KERNEL_SOURCE)],
-            capture_output=True, text=True,
-        )
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed on {KERNEL_SOURCE}:\n{proc.stdout}{proc.stderr}")
-        log_path.write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, lib_path)
-    lib = ctypes.CDLL(str(lib_path))
-    fn = lib.dogs_blend_forward
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
-    return lib, log_path.read_text() if log_path.exists() else ""
+_VP, _INT = ctypes.c_void_p, ctypes.c_int
+_FWD_ARGTYPES = (_VP, _VP, _VP, _INT, _INT, _INT, _INT, _VP)
+_BWD_ARGTYPES = (_VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, ctypes.c_float, _VP)
 
 
 def _check_inputs(ent: torch.Tensor, starts: torch.Tensor, n_tiles: int) -> None:
@@ -102,6 +65,25 @@ def _check_inputs(ent: torch.Tensor, starts: torch.Tensor, n_tiles: int) -> None
         raise ValueError("ent and starts must be contiguous")
 
 
+def _check_cot(cot: torch.Tensor, n_tiles: int, tile_size: int = TILE) -> None:
+    shape = (n_tiles, COT_ROWS, tile_size * tile_size)
+    if cot.dtype != torch.float32 or tuple(cot.shape) != shape:
+        raise ValueError(f"cot must be {shape} float32, got {tuple(cot.shape)} {cot.dtype}")
+    if not cot.is_contiguous():
+        raise ValueError("cot must be contiguous")
+
+
+def require_cuda(name: str, *tensors: torch.Tensor) -> None:
+    """Raise unless every tensor lies on one CUDA device: a kernel wrapper
+    never runs a plain version in its place."""
+    dev = tensors[0].device
+    if not all(t.is_cuda and t.device == dev for t in tensors):
+        raise ValueError(
+            f"{name} runs the CUDA kernel: its tensors (on "
+            f"{sorted({str(t.device) for t in tensors})}) must share one CUDA device"
+        )
+
+
 def blend_forward(
     ent: torch.Tensor,
     starts: torch.Tensor,
@@ -110,24 +92,20 @@ def blend_forward(
     width: int,
     height: int,
 ) -> torch.Tensor:
-    """Launch the Hopper blend kernel on the current stream (no sync).
+    """Launch the Hopper blend forward kernel on the current stream (no sync).
 
     CUDA tensors only: a CPU tensor raises, since the kernel has no CPU
     build (use `blend_forward_reference` there). `starts` must be
     nondecreasing with starts[-1] <= K, as build_tile_bins makes it; that is
     not checked here, since reading it back would synchronize."""
     n_tiles = n_tiles_y * n_tiles_x
-    if not (ent.is_cuda and starts.is_cuda and ent.device == starts.device):
-        raise ValueError(
-            f"blend_forward runs the CUDA kernel: ent on {ent.device} and starts on "
-            f"{starts.device} must share one CUDA device"
-        )
+    require_cuda("blend_forward", ent, starts)
     _check_inputs(ent, starts, n_tiles)
-    lib, _ = build_kernel()
+    launch = kernels.launcher("blend_forward", "dogs_blend_forward", _FWD_ARGTYPES)
     out = torch.empty((n_tiles, OUT_ROWS, TILE * TILE), dtype=torch.float32, device=ent.device)
     with torch.cuda.device(ent.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.dogs_blend_forward(
+        err = launch(
             ent.data_ptr(), starts.data_ptr(), out.data_ptr(),
             n_tiles_x, n_tiles, width, height, stream,
         )
@@ -140,6 +118,117 @@ def blend_forward(
 blend_forward.launches = 0  # kernel launches since the last reset
 
 
+def blend_backward(
+    ent: torch.Tensor,
+    starts: torch.Tensor,
+    cot: torch.Tensor,
+    n_tiles_y: int,
+    n_tiles_x: int,
+    width: int,
+    height: int,
+    depth_threshold: float = 0.0,
+) -> torch.Tensor:
+    """Launch the Hopper blend backward kernel on the current stream (no sync).
+
+    CUDA tensors only, as `blend_forward`; `blend_backward_reference` is the
+    plain version. Returns d_ent (K, 16), allocated zeroed here: the kernel
+    writes columns 0-9 of the rows it reaches and leaves the rest zero."""
+    n_tiles = n_tiles_y * n_tiles_x
+    require_cuda("blend_backward", ent, starts, cot)
+    _check_inputs(ent, starts, n_tiles)
+    _check_cot(cot, n_tiles)
+    launch = kernels.launcher("blend_backward", "dogs_blend_backward", _BWD_ARGTYPES)
+    d_ent = torch.zeros_like(ent)
+    with torch.cuda.device(ent.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = launch(
+            ent.data_ptr(), starts.data_ptr(), cot.data_ptr(), d_ent.data_ptr(),
+            n_tiles_x, n_tiles, width, height, float(depth_threshold), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"blend_backward kernel launch failed: CUDA error {err}")
+    blend_backward.launches += 1
+    return d_ent
+
+
+blend_backward.launches = 0  # kernel launches since the last reset
+
+
+def backward_cotangent(
+    out: torch.Tensor,
+    cot_img: torch.Tensor,
+    cot_a: torch.Tensor,
+    cot_d: torch.Tensor,
+    background: torch.Tensor,
+) -> torch.Tensor:
+    """The backward's (T, 8, P) `cot` from the forward output `out` (T, 5, P)
+    and the cotangents of the composited image (T, P, 3), alpha (T, P) and
+    inverse depth (T, P) (dogs_tpu/raster/tiled.py:434-453). The image is
+    C + (1 - A) bg, so the effective alpha cotangent is cot_a - bg . cot_img;
+    Gtot = gC . C + gA_eff A + gD D from the splat-only forward totals."""
+    cot_rgb = cot_img.transpose(1, 2)  # (T, 3, P)
+    cot_a_eff = cot_a - (cot_rgb * background[None, :, None]).sum(dim=1)
+    g_tot = (cot_rgb * out[:, 0:3]).sum(dim=1) + cot_a_eff * out[:, 3] + cot_d * out[:, 4]
+    return torch.cat(
+        [cot_rgb, cot_a_eff[:, None], cot_d[:, None], g_tot[:, None], torch.zeros_like(cot_rgb[:, :2])],
+        dim=1,
+    ).contiguous()
+
+
+def _tile_batches(starts, n_tiles_y, n_tiles_x, width, height, ts):
+    """Yields, per batch of _REF_TILE_BATCH tiles with any entries: the tile
+    ids, their entry ranges s0/s1, the longest range, the pixel centres
+    (TB, P) and the initial log T (0 in the image, -inf past its edge, where
+    pixels never blend)."""
+    n_tiles = n_tiles_y * n_tiles_x
+    device = starts.device
+    lane = torch.arange(ts * ts, device=device)
+    starts64 = starts.to(torch.int64)
+    for b0 in range(0, n_tiles, _REF_TILE_BATCH):
+        tiles = torch.arange(b0, min(b0 + _REF_TILE_BATCH, n_tiles), device=device)
+        s0 = starts64[tiles]
+        s1 = starts64[tiles + 1]
+        max_cnt = int((s1 - s0).max())
+        if max_cnt == 0:
+            continue
+        ix = (tiles % n_tiles_x)[:, None] * ts + lane % ts  # (TB, P)
+        iy = (tiles // n_tiles_x)[:, None] * ts + lane // ts
+        log_t = torch.where(
+            (ix < width) & (iy < height),
+            torch.zeros((), device=device),
+            torch.full((), -math.inf, device=device),
+        )
+        yield tiles, s0, s1, max_cnt, ix.float() + 0.5, iy.float() + 0.5, log_t
+
+
+def _chunk(ent, s0, s1, off, px, py, log_t):
+    """One step of _REF_CHUNK entries for every tile of a batch. Returns the
+    entry positions and their validity (TB, CH), the rows (TB, CH, 16), and
+    per (tile, entry, pixel): dx, dy, alpha, exp(min(power, 0)), the inclusive
+    cumsum of log(1 - alpha), whether the entry contributes (before the stop),
+    T before the entry, and the blend weight w."""
+    ar = torch.arange(_REF_CHUNK, device=ent.device)
+    pos = s0[:, None] + off + ar
+    valid = pos < s1[:, None]
+    rows = ent[torch.clamp(pos, max=ent.shape[0] - 1)]
+    dx = px[:, None, :] - rows[:, :, ENT_MUX, None]
+    dy = py[:, None, :] - rows[:, :, ENT_MUY, None]
+    power = (
+        -0.5 * (rows[:, :, ENT_CA, None] * dx * dx + rows[:, :, ENT_CC, None] * dy * dy)
+        - rows[:, :, ENT_CB, None] * dx * dy
+    )
+    expp = torch.exp(torch.clamp(power, max=0.0))
+    alpha = torch.clamp(rows[:, :, ENT_OPA, None] * expp, max=0.99)
+    alpha = torch.where((alpha >= ALPHA_MIN) & valid[:, :, None], alpha, 0.0)
+    lg = torch.log1p(-alpha)
+    cum = torch.cumsum(lg, dim=1)
+    log_t_incl = log_t[:, None, :] + cum
+    contributes = log_t_incl >= LOG_TMIN
+    t_excl = torch.exp(log_t_incl - lg)
+    w = torch.where(contributes, alpha * t_excl, 0.0)
+    return pos, valid, rows, dx, dy, alpha, expp, cum, contributes, t_excl, w
+
+
 def blend_forward_reference(
     ent: torch.Tensor,
     starts: torch.Tensor,
@@ -149,62 +238,24 @@ def blend_forward_reference(
     height: int,
     tile_size: int = TILE,
 ) -> torch.Tensor:
-    """Plain PyTorch blend with the kernel's contract, on any device.
+    """Plain PyTorch blend forward with the kernel's contract, on any device.
 
     Tiles go in batches of _REF_TILE_BATCH; each batch walks its entries
     _REF_CHUNK at a time with the inclusive log-transmittance from a cumsum,
     and stops once every pixel of the batch is saturated."""
     n_tiles = n_tiles_y * n_tiles_x
     _check_inputs(ent, starts, n_tiles)
-    device = ent.device
-    ts = tile_size
-    tile_batch, chunk = _REF_TILE_BATCH, _REF_CHUNK
-    p = ts * ts
-    k_total = ent.shape[0]
-    out = torch.zeros((n_tiles, OUT_ROWS, p), dtype=torch.float32, device=device)
-    if k_total == 0:
+    p = tile_size * tile_size
+    out = torch.zeros((n_tiles, OUT_ROWS, p), dtype=torch.float32, device=ent.device)
+    if ent.shape[0] == 0:
         return out
-    lane = torch.arange(p, device=device)
-    ar_chunk = torch.arange(chunk, device=device)
-    starts64 = starts.to(torch.int64)
-    for b0 in range(0, n_tiles, tile_batch):
-        tiles = torch.arange(b0, min(b0 + tile_batch, n_tiles), device=device)
-        s0 = starts64[tiles]
-        s1 = starts64[tiles + 1]
-        max_cnt = int((s1 - s0).max())
-        if max_cnt == 0:
-            continue
-        ix = (tiles % n_tiles_x)[:, None] * ts + lane % ts  # (TB, P)
-        iy = (tiles // n_tiles_x)[:, None] * ts + lane // ts
-        px = ix.to(torch.float32) + 0.5
-        py = iy.to(torch.float32) + 0.5
-        # Pixels past the image edge start saturated: they never blend.
-        log_t = torch.where(
-            (ix < width) & (iy < height),
-            torch.zeros((), device=device),
-            torch.full((), -math.inf, device=device),
-        )
-        acc = torch.zeros((tiles.shape[0], OUT_ROWS, p), dtype=torch.float32, device=device)
-        for off in range(0, max_cnt, chunk):
+    batches = _tile_batches(starts, n_tiles_y, n_tiles_x, width, height, tile_size)
+    for tiles, s0, s1, max_cnt, px, py, log_t in batches:
+        acc = torch.zeros((tiles.shape[0], OUT_ROWS, p), dtype=torch.float32, device=ent.device)
+        for off in range(0, max_cnt, _REF_CHUNK):
             if float(log_t.max()) < LOG_TMIN:
                 break  # every pixel of the batch is done
-            pos = s0[:, None] + off + ar_chunk  # (TB, CH)
-            valid = pos < s1[:, None]
-            rows = ent[torch.clamp(pos, max=k_total - 1)]  # (TB, CH, 16)
-            dx = px[:, None, :] - rows[:, :, ENT_MUX, None]
-            dy = py[:, None, :] - rows[:, :, ENT_MUY, None]
-            power = (
-                -0.5 * (rows[:, :, ENT_CA, None] * dx * dx + rows[:, :, ENT_CC, None] * dy * dy)
-                - rows[:, :, ENT_CB, None] * dx * dy
-            )
-            alpha = torch.clamp(
-                rows[:, :, ENT_OPA, None] * torch.exp(torch.clamp(power, max=0.0)), max=0.99
-            )
-            alpha = torch.where((alpha >= ALPHA_MIN) & valid[:, :, None], alpha, 0.0)
-            lg = torch.log1p(-alpha)
-            cum = torch.cumsum(lg, dim=1)
-            log_t_incl = log_t[:, None, :] + cum
-            w = torch.where(log_t_incl >= LOG_TMIN, alpha * torch.exp(log_t_incl - lg), 0.0)
+            _, _, rows, _, _, _, _, cum, _, _, w = _chunk(ent, s0, s1, off, px, py, log_t)
             cols = rows[:, :, [ENT_R, ENT_G, ENT_B, ENT_INVD]]  # (TB, CH, 4)
             # Elementwise products summed over the chunk: exact f32, no TF32.
             acc[:, [0, 1, 2, 4]] += (w[:, :, None, :] * cols[:, :, :, None]).sum(dim=1)
@@ -212,3 +263,77 @@ def blend_forward_reference(
             log_t = log_t + cum[:, -1, :]
         out[tiles] = acc
     return out
+
+
+def blend_backward_reference(
+    ent: torch.Tensor,
+    starts: torch.Tensor,
+    cot: torch.Tensor,
+    n_tiles_y: int,
+    n_tiles_x: int,
+    width: int,
+    height: int,
+    depth_threshold: float = 0.0,
+    tile_size: int = TILE,
+) -> torch.Tensor:
+    """Plain PyTorch blend backward with the kernel's contract, on any device:
+    dogs_tpu/raster/tiled.py backward_batch, vectorized over a tile batch.
+
+    Replays the forward's chunk schedule front to back; the suffix of later
+    entries' G is Gtot minus the running inclusive prefix."""
+    n_tiles = n_tiles_y * n_tiles_x
+    _check_inputs(ent, starts, n_tiles)
+    _check_cot(cot, n_tiles, tile_size)
+    d_ent = torch.zeros_like(ent)
+    if ent.shape[0] == 0:
+        return d_ent
+    batches = _tile_batches(starts, n_tiles_y, n_tiles_x, width, height, tile_size)
+    for tiles, s0, s1, max_cnt, px, py, log_t in batches:
+        c = cot[tiles]  # (TB, 8, P)
+        g_r, g_g, g_b, g_a, g_d, g_tot = (c[:, i, None, :] for i in range(6))
+        prefix_g = torch.zeros_like(log_t)
+        for off in range(0, max_cnt, _REF_CHUNK):
+            if float(log_t.max()) < LOG_TMIN:
+                break  # every pixel of the batch is done; its rows stay zero
+            pos, valid, rows, dx, dy, alpha, expp, cum, contributes, t_excl, w = _chunk(
+                ent, s0, s1, off, px, py, log_t
+            )
+            col = [rows[:, :, i, None] for i in range(ENT_DEPTH + 1)]
+            direct = col[ENT_R] * g_r + col[ENT_G] * g_g + col[ENT_B] * g_b + g_a + col[ENT_INVD] * g_d
+            g_term = direct * w  # G_j per (tile, entry, pixel)
+            prefix_incl = prefix_g[:, None, :] + torch.cumsum(g_term, dim=1)
+            suffix = g_tot - prefix_incl
+            d_alpha = torch.where(
+                contributes & (alpha > 0.0) & (alpha < 0.99),
+                direct * t_excl - suffix / (1.0 - alpha),
+                0.0,
+            )
+            d_power = d_alpha * alpha
+            # power = -0.5 (a dx^2 + c dy^2) - b dx dy with d = pix - mu, so
+            # d(power)/d(mu_x) = a dx + b dy (sign flip through d).
+            d_mux = (d_power * (col[ENT_CA] * dx + col[ENT_CB] * dy)).sum(2)
+            d_muy = (d_power * (col[ENT_CC] * dy + col[ENT_CB] * dx)).sum(2)
+            if depth_threshold > 0.0:
+                damp = torch.clamp((rows[:, :, ENT_DEPTH] / depth_threshold) ** 2, max=1.0)
+                d_mux = d_mux * damp
+                d_muy = d_muy * damp
+            grads = torch.stack(
+                [
+                    d_mux,
+                    d_muy,
+                    (d_power * (-0.5 * dx * dx)).sum(2),
+                    (d_power * (-dx * dy)).sum(2),
+                    (d_power * (-0.5 * dy * dy)).sum(2),
+                    (w * g_r).sum(2),
+                    (w * g_g).sum(2),
+                    (w * g_b).sum(2),
+                    (d_alpha * expp).sum(2),
+                    (w * g_d).sum(2),
+                ],
+                dim=-1,
+            )  # (TB, CH, 10)
+            # Entry positions are unique (each entry belongs to one tile).
+            d_ent[pos[valid], :N_GRADS] = grads[valid]
+            prefix_g = prefix_incl[:, -1, :]
+            log_t = log_t + cum[:, -1, :]
+    return d_ent

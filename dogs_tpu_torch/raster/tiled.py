@@ -1,11 +1,14 @@
-"""Tiled rasterizer, forward (render) path.
+"""Tiled rasterizer, differentiable.
 
 Port of dogs_tpu/raster/tiled.py:render_tiled: project -> bin -> build the
 N-space entry matrix -> gather it to sorted order -> blend -> composite the
-background -> untile and crop. The blend is the hand-written Hopper kernel
-(raster/blend.py) for CUDA tensors and its plain PyTorch version for CPU
+background -> untile and crop. The gather and the blend are one
+`torch.autograd.Function` (`_TileBlend`) whose backward is the blend
+backward plus the K -> N reduce (an id sort and a segment sum). The blends
+and the segment sum are hand-written Hopper kernels (raster/blend.py,
+raster/reduce.py) for CUDA tensors and their plain PyTorch versions for CPU
 tensors. There is no fallback between them: a kernel that fails to build or
-launch raises. The backward pass comes with the training slice.
+launch raises. Projection's gradient is torch autograd.
 """
 
 from __future__ import annotations
@@ -16,7 +19,7 @@ import torch
 
 from dogs_tpu_torch.core.camera import Camera
 from dogs_tpu_torch.core.gaussians import GaussianParams
-from dogs_tpu_torch.raster import blend
+from dogs_tpu_torch.raster import blend, reduce
 from dogs_tpu_torch.raster.binning import TileBins, build_tile_bins
 from dogs_tpu_torch.raster.projection import ProjectedGaussians, project_gaussians
 
@@ -27,9 +30,16 @@ class RasterConfig:
 
     The TPU schedule fields of dogs_tpu's RasterConfig are not carried:
     tile_batch, chunk, pallas_chunk, pallas_tiles_per_program, pallas_stream
-    (the Hopper kernel has one schedule), bin_capacity, base_tiles and
-    overflow_capacity (binning here is exact-size), and reduce_dtype (a
-    backward-pass setting). `use_kernel` replaces `use_pallas`.
+    (the Hopper kernels have one schedule), bin_capacity, base_tiles and
+    overflow_capacity (binning here is exact-size). `use_kernel` replaces
+    `use_pallas`.
+
+    `reduce_dtype` is the K -> N gradient reduce: "f32" sums the exact
+    per-entry gradients; "bf16" rounds each to bf16 (round to nearest even)
+    before the f32 sum, as dogs_tpu does by default. The port defaults to
+    "f32": on the TPU, bf16 pair packing halved the bytes the id sort moved
+    as payload, but here the sort moves int32 ids and a permutation and the
+    segment-sum kernel reads f32 rows, so bf16 buys no bytes and only rounds.
     """
 
     tile_size: int = 16
@@ -41,6 +51,7 @@ class RasterConfig:
     # the plain PyTorch version on the card (reference renders). CPU tensors
     # always take the plain version: the kernel has no CPU build.
     use_kernel: bool = True
+    reduce_dtype: str = "f32"
 
 
 @dataclasses.dataclass
@@ -54,11 +65,11 @@ class RenderOutput:
     bin_dropped: int = 0  # ragged binning drops nothing past the clamp
 
 
-def sorted_entries(
-    proj: ProjectedGaussians, bins: TileBins, invd_offset: torch.Tensor | None = None
-) -> torch.Tensor:
-    """The blend's (K, 16) entry matrix: per-Gaussian columns (blend.ENT_*)
-    built in N-space, then gathered once into sorted order."""
+def entry_matrix(proj: ProjectedGaussians, invd_offset: torch.Tensor | None = None) -> torch.Tensor:
+    """The blend's (N, 16) entry matrix in Gaussian order (blend.ENT_*
+    columns), as dogs_tpu/raster/tiled.py:619-643 builds it. The depth column
+    (read only by the backward's depth damping) carries no gradient, as
+    there (`stop_gradient(dsafe)`); the inverse depth does."""
     visible = proj.radius > 0.0
     zero = torch.zeros((), device=proj.depth.device)
     opacity = torch.where(visible, proj.opacity, zero)
@@ -66,22 +77,88 @@ def sorted_entries(
     invd = torch.where(visible, 1.0 / dsafe, zero)
     if invd_offset is not None:
         invd = invd + invd_offset
-    ent_n = torch.cat(
+    return torch.cat(
         [
             proj.means2d,
             proj.conic,
             proj.color,
             opacity[:, None],
             invd[:, None],
-            dsafe[:, None],
+            dsafe.detach()[:, None],
             torch.zeros((dsafe.shape[0], blend.ENT_WIDTH - 11), device=dsafe.device),
         ],
         dim=1,
     )
-    return ent_n[bins.sorted_idx].contiguous()
 
 
-@torch.no_grad()
+def sorted_entries(
+    proj: ProjectedGaussians, bins: TileBins, invd_offset: torch.Tensor | None = None
+) -> torch.Tensor:
+    """The (K, 16) entry matrix in sorted (tile, depth) order, as the blend
+    kernels read it."""
+    return entry_matrix(proj, invd_offset)[bins.sorted_idx].contiguous()
+
+
+class _TileBlend(torch.autograd.Function):
+    """Alpha blending over tiles with a hand-written backward: the port of
+    dogs_tpu/raster/tiled.py:_blend_with_vjp_pallas.
+
+    Inputs: the N-space entry matrix `ent_n` (N, 16) and the background (3,)
+    carry gradients; `sorted_idx`, `starts`, the tile grid and the config do
+    not. Outputs (T, P, 3) background-composited colour, (T, P) alpha and
+    (T, P) inverse depth.
+
+    The gather into sorted order happens inside, so that the K -> N reduce of
+    the backward is the id sort plus the segment-sum kernel (raster/reduce.py)
+    and not autograd's scatter-add for `index`. On CUDA tensors with
+    `cfg.use_kernel` the forward launches the blend forward kernel and the
+    backward the blend backward and segment-sum kernels; otherwise all three
+    are their plain versions.
+    """
+
+    @staticmethod
+    def forward(ctx, ent_n, background, sorted_idx, starts, grid, cfg):
+        ent = ent_n[sorted_idx].contiguous()
+        args = (ent, starts, *grid)
+        if ent.is_cuda and cfg.use_kernel:
+            out = blend.blend_forward(*args)
+        else:
+            out = blend.blend_forward_reference(*args, tile_size=cfg.tile_size)
+        # out: (T, 5, P) rows R, G, B, A, invD, no background.
+        aa = out[:, 3]
+        img = out[:, 0:3].transpose(1, 2) + (1.0 - aa)[..., None] * background
+        ctx.save_for_backward(ent, sorted_idx, starts, background, out)
+        ctx.grid, ctx.cfg, ctx.n_out = grid, cfg, ent_n.shape[0]
+        return img, aa, out[:, 4]
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, cot_img, cot_a, cot_d):
+        ent, sorted_idx, starts, background, out = ctx.saved_tensors
+        cfg = ctx.cfg
+        aa = out[:, 3]
+        d_bg = (cot_img * (1.0 - aa)[..., None]).sum(dim=(0, 1))
+        if not ctx.needs_input_grad[0]:
+            return None, d_bg, None, None, None, None
+        cot = blend.backward_cotangent(out, cot_img, cot_a, cot_d, background)
+        args = (ent, starts, cot, *ctx.grid)
+        use_kernel = ent.is_cuda and cfg.use_kernel
+        if use_kernel:
+            d_ent = blend.blend_backward(*args, depth_threshold=cfg.depth_threshold)
+        else:
+            d_ent = blend.blend_backward_reference(
+                *args, depth_threshold=cfg.depth_threshold, tile_size=cfg.tile_size
+            )
+        d_ent_n = reduce.reduce_entries(d_ent, sorted_idx, ctx.n_out, cfg.reduce_dtype, use_kernel)
+        return d_ent_n, d_bg, None, None, None, None
+
+
+def _detached(proj: ProjectedGaussians) -> ProjectedGaussians:
+    return ProjectedGaussians(
+        **{f.name: getattr(proj, f.name).detach() for f in dataclasses.fields(proj)}
+    )
+
+
 def render_tiled(
     params: GaussianParams,
     camera: Camera,
@@ -94,7 +171,10 @@ def render_tiled(
     invd_offset: torch.Tensor | None = None,
     color_override: torch.Tensor | None = None,
 ) -> RenderOutput:
-    """Render one camera. Arguments as dogs_tpu's render_tiled."""
+    """Render one camera; differentiable in the parameters, `background`,
+    `means2d_offset` (the densify signal), `invd_offset` (the importance
+    signal) and `color_override`. Arguments as dogs_tpu's render_tiled.
+    Serving callers wrap it in `torch.no_grad()`."""
     h, w = camera.height, camera.width
     ts = cfg.tile_size
     n_tiles_y = -(-h // ts)
@@ -103,6 +183,8 @@ def render_tiled(
     device = params.xyz.device
     if background is None:
         background = torch.zeros((3,), dtype=torch.float32, device=device)
+    if device.type == "cuda" and cfg.use_kernel and ts != blend.TILE:
+        raise ValueError(f"the blend kernels are built for {blend.TILE}px tiles, not {ts}")
 
     proj = project_gaussians(
         params,
@@ -114,24 +196,18 @@ def render_tiled(
         means2d_offset=means2d_offset,
         color_override=color_override,
     )
+    # Binning's outputs are integers: it runs on detached fields, so no
+    # K-sized autograd graph is recorded for it.
     bins = build_tile_bins(
-        proj, h, w,
+        _detached(proj), h, w,
         tile_size=ts,
         max_tiles_per_gaussian=cfg.max_tiles_per_gaussian,
         tile_culling=cfg.tile_culling,
     )
-    ent = sorted_entries(proj, bins, invd_offset)
-    args = (ent, bins.tile_starts, n_tiles_y, n_tiles_x, w, h)
-    if ent.is_cuda and cfg.use_kernel:
-        if ts != blend.TILE:
-            raise ValueError(f"the blend kernel is built for {blend.TILE}px tiles, not {ts}")
-        out = blend.blend_forward(*args)
-    else:
-        out = blend.blend_forward_reference(*args, tile_size=ts)
-    # out: (T, 5, P) rows R, G, B, A, invD.
-    tot_c = out[:, 0:3, :].transpose(1, 2)  # (T, P, 3)
-    aa = out[:, 3, :]
-    img = tot_c + (1.0 - aa)[..., None] * background
+    img, aa, dd = _TileBlend.apply(
+        entry_matrix(proj, invd_offset), background, bins.sorted_idx, bins.tile_starts,
+        (n_tiles_y, n_tiles_x, w, h), cfg,
+    )
 
     def untile(x):
         if x.dim() == 2:
@@ -144,7 +220,7 @@ def render_tiled(
     return RenderOutput(
         image=untile(img),
         alpha=untile(aa)[..., 0],
-        invdepth=untile(out[:, 4, :])[..., 0],
+        invdepth=untile(dd)[..., 0],
         radii=proj.radius,
         bin_valid=bins.num_valid,
         bin_rect_truncated=bins.num_truncated,

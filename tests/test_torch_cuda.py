@@ -1,5 +1,5 @@
-"""CUDA lane: the hand-written blend kernel against its plain PyTorch
-version on the card. Every test here needs a CUDA device and skips without
+"""CUDA lane: the hand-written kernels (blend forward, blend backward,
+segment sum) against their plain PyTorch versions on the card. Every test here needs a CUDA device and skips without
 one. The file imports no JAX, so it runs on a machine with the card alone:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
@@ -12,13 +12,15 @@ import torch
 
 from dogs_tpu_torch.core import look_at_camera, params_from_numpy
 from dogs_tpu_torch.data import synthetic
-from dogs_tpu_torch.raster import blend
+from dogs_tpu_torch.core.gaussians import PARAM_NAMES
+from dogs_tpu_torch.raster import blend, reduce
 from dogs_tpu_torch.raster.binning import build_tile_bins
 from dogs_tpu_torch.raster.projection import project_gaussians
 from dogs_tpu_torch.raster.tiled import RasterConfig, render_tiled, sorted_entries
 
 pytestmark = pytest.mark.cuda
 ATOL = 3e-4  # forward parity bar of tests/test_pallas_blend.py
+GRAD_ATOL = 2e-3  # max-normalized gradient bar of tests/test_pallas_blend.py:58-61
 MT = 36
 
 SCENES = {
@@ -38,19 +40,49 @@ SCENES = {
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the blend kernel has no CPU build")
+        pytest.skip("needs a CUDA device: the kernels have no CPU build")
     return torch.device("cuda", 0)
+
+
+@torch.no_grad()
+def blend_args(scene, dev):
+    """(entries, starts, n_tiles_y, n_tiles_x, width, height) of a scene."""
+    make, view, deg = SCENES[scene]
+    h, w = view["height"], view["width"]
+    params = params_from_numpy(make(), dev)
+    proj = project_gaussians(params, look_at_camera(**view, device=dev), active_sh_degree=deg)
+    bins = build_tile_bins(proj, h, w, max_tiles_per_gaussian=MT)
+    return (sorted_entries(proj, bins), bins.tile_starts, -(-h // 16), -(-w // 16), w, h), bins
+
+
+def random_cot(args, seed):
+    """A cotangent drawn from a seeded generator, with Gtot from the plain
+    forward totals, zero past the image edge."""
+    ent, starts, nty, ntx, w, h = args
+    dev = ent.device
+    out = blend.blend_forward_reference(*args)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    t = nty * ntx
+    p = torch.arange(256, device=dev)
+    tiles = torch.arange(t, device=dev)[:, None]
+    inside = (((tiles % ntx) * 16 + p % 16) < w) & (((tiles // ntx) * 16 + p // 16) < h)
+    cot_img = torch.randn((t, 256, 3), generator=g, device=dev) * inside[..., None]
+    cot_a = torch.randn((t, 256), generator=g, device=dev) * inside
+    cot_d = torch.randn((t, 256), generator=g, device=dev) * inside
+    return blend.backward_cotangent(out, cot_img, cot_a, cot_d, torch.zeros(3, device=dev))
+
+
+def assert_columns_close(got, want, ncols, atol):
+    for c in range(ncols):
+        scale = float(want[:, c].abs().max()) + 1e-6
+        torch.testing.assert_close(got[:, c] / scale, want[:, c] / scale, atol=atol, rtol=0,
+                                   msg=lambda m: f"column {c}: {m}")
 
 
 @pytest.mark.parametrize("scene", list(SCENES))
 def test_blend_kernel_matches_reference_on_card(scene, cuda):
-    make, view, deg = SCENES[scene]
-    h, w = view["height"], view["width"]
-    params = params_from_numpy(make(), cuda)
     with torch.no_grad():
-        proj = project_gaussians(params, look_at_camera(**view, device=cuda), active_sh_degree=deg)
-        bins = build_tile_bins(proj, h, w, max_tiles_per_gaussian=MT)
-        args = (sorted_entries(proj, bins), bins.tile_starts, -(-h // 16), -(-w // 16), w, h)
+        args, _ = blend_args(scene, cuda)
         before = blend.blend_forward.launches
         got = blend.blend_forward(*args)
         want = blend.blend_forward_reference(*args)
@@ -73,3 +105,74 @@ def test_render_uses_kernel_on_card(cuda):
     assert blend.blend_forward.launches == before + 1
     for f in ("image", "alpha", "invdepth"):
         torch.testing.assert_close(getattr(got, f), getattr(want, f), atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("depth_threshold", [0.0, 4.5])
+@pytest.mark.parametrize("scene", list(SCENES))
+def test_blend_backward_kernel_matches_reference_and_is_deterministic(scene, depth_threshold, cuda):
+    args, _ = blend_args(scene, cuda)
+    cot = random_cot(args, seed=7)
+    before = blend.blend_backward.launches
+    got = blend.blend_backward(args[0], args[1], cot, *args[2:], depth_threshold=depth_threshold)
+    again = blend.blend_backward(args[0], args[1], cot, *args[2:], depth_threshold=depth_threshold)
+    want = blend.blend_backward_reference(args[0], args[1], cot, *args[2:], depth_threshold=depth_threshold)
+    torch.cuda.synchronize()
+    assert blend.blend_backward.launches == before + 2
+    assert torch.equal(got, again)  # no atomics: bit-identical
+    assert torch.isfinite(got).all() and not got[:, 10:].any()
+    assert_columns_close(got, want, 10, GRAD_ATOL)
+
+
+@pytest.mark.parametrize("scene", list(SCENES))
+def test_segment_sum_kernel_matches_reference_and_is_deterministic(scene, cuda):
+    args, bins = blend_args(scene, cuda)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    d_ent = torch.randn((args[0].shape[0], blend.ENT_WIDTH), generator=g, device=cuda)
+    n = int(bins.sorted_idx.max()) + 5 if bins.sorted_idx.numel() else 5
+    ids, vals = reduce.sort_by_gaussian(d_ent, bins.sorted_idx, "f32")
+    before = reduce.sorted_segment_sum.launches
+    got = reduce.sorted_segment_sum(ids, vals, n)
+    again = reduce.sorted_segment_sum(ids, vals, n)
+    want = reduce.sorted_segment_sum_reference(ids, vals, n)
+    torch.cuda.synchronize()
+    assert reduce.sorted_segment_sum.launches == before + 2
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+
+
+def test_segment_sum_kernel_long_run_and_dropped_ids(cuda):
+    g = torch.Generator(device=cuda).manual_seed(4)
+    ids = torch.cat([torch.zeros(5000, dtype=torch.int32, device=cuda),
+                     torch.full((300,), 7, dtype=torch.int32, device=cuda),
+                     torch.full((50,), 2**31 - 1, dtype=torch.int32, device=cuda)])
+    vals = torch.randn((ids.shape[0], 10), generator=g, device=cuda)
+    got = reduce.sorted_segment_sum(ids, vals, 8)
+    want = reduce.sorted_segment_sum_reference(ids, vals, 8)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-5)
+    assert not got[1:7].any() and not got[:, 10:].any()
+
+
+@pytest.mark.parametrize("reduce_dtype", ["f32", "bf16"])
+def test_render_backward_goes_through_all_three_kernels(reduce_dtype, cuda):
+    make, view, deg = SCENES["random_seed0"]
+    cam = look_at_camera(**view, device=cuda)
+    target = torch.rand((view["height"], view["width"], 3), generator=torch.Generator(device=cuda).manual_seed(1),
+                        device=cuda)
+    grads = {}
+    for use_kernel in (True, False):
+        params = params_from_numpy(make(), cuda)
+        bg = torch.tensor([0.1, 0.2, 0.3], device=cuda, requires_grad=True)
+        cfg = RasterConfig(max_tiles_per_gaussian=MT, use_kernel=use_kernel, reduce_dtype=reduce_dtype)
+        counts = [blend.blend_forward.launches, blend.blend_backward.launches,
+                  reduce.sorted_segment_sum.launches]
+        out = render_tiled(params, cam, cfg, background=bg, active_sh_degree=deg)
+        loss = ((out.image - target) ** 2).sum() + 0.3 * (out.alpha**2).sum() + 0.1 * (out.invdepth**2).sum()
+        leaves = [getattr(params, k) for k in PARAM_NAMES] + [bg]
+        grads[use_kernel] = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        after = [blend.blend_forward.launches, blend.blend_backward.launches,
+                 reduce.sorted_segment_sum.launches]
+        assert [a - b for a, b in zip(after, counts)] == ([1, 1, 1] if use_kernel else [0, 0, 0])
+    for name, a, b in zip(PARAM_NAMES + ("background",), grads[False], grads[True]):
+        scale = float(a.abs().max()) + 1e-6
+        torch.testing.assert_close(b / scale, a / scale, atol=GRAD_ATOL, rtol=0, msg=lambda m: f"{name}: {m}")

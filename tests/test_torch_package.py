@@ -56,11 +56,72 @@ def test_kernel_entry_point_raises_on_cpu_and_render_takes_plain_path():
         "                   look_at_camera(**synthetic.RANDOM_SCENE_VIEW), active_sh_degree=2)\n"
         "assert out.image.shape == (56, 72, 3) and bool(torch.isfinite(out.image).all())\n"
         "assert blend.blend_forward.launches == 0\n"
-        "assert blend.build_kernel.cache_info().currsize == 0  # nothing was built\n"
+        "from dogs_tpu_torch import kernels\n"
+        "assert kernels.build_all.cache_info().currsize == 0  # nothing was built\n"
         "print('ok')\n"
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
+
+
+def test_backward_kernels_raise_on_cpu_and_render_backward_takes_plain_path():
+    proc = run_python(
+        "import torch\n"
+        "from dogs_tpu_torch import kernels\n"
+        "from dogs_tpu_torch.core import look_at_camera, params_from_numpy\n"
+        "from dogs_tpu_torch.data import synthetic\n"
+        "from dogs_tpu_torch.raster import blend, reduce\n"
+        "from dogs_tpu_torch.raster.tiled import render_tiled\n"
+        "ent = torch.zeros((4, blend.ENT_WIDTH))\n"
+        "starts = torch.tensor([0, 2, 4], dtype=torch.int32)\n"
+        "cot = torch.zeros((2, blend.COT_ROWS, 256))\n"
+        "calls = [lambda: blend.blend_backward(ent, starts, cot, 1, 2, 32, 16),\n"
+        "         lambda: reduce.sorted_segment_sum(starts[:2].clone(), torch.zeros((2, 10)), 3)]\n"
+        "for call in calls:\n"
+        "    try:\n"
+        "        call()\n"
+        "    except ValueError as e:\n"
+        "        assert 'CUDA' in str(e), e\n"
+        "    else:\n"
+        "        raise SystemExit('a kernel wrapper ran on CPU tensors')\n"
+        "params = params_from_numpy(synthetic.random_scene_arrays())\n"
+        "out = render_tiled(params, look_at_camera(**synthetic.RANDOM_SCENE_VIEW), active_sh_degree=2)\n"
+        "grads = torch.autograd.grad(out.image.sum(), list(params.parameters()))\n"
+        "assert all(bool(torch.isfinite(g).all()) for g in grads)\n"
+        "launches = (blend.blend_forward.launches, blend.blend_backward.launches,\n"
+        "            reduce.sorted_segment_sum.launches)\n"
+        "assert launches == (0, 0, 0), launches\n"
+        "assert kernels.build_all.cache_info().currsize == 0  # nothing was built\n"
+        "print('ok')\n"
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def test_serving_path_builds_no_graph(tmp_path):
+    """render_tiled is differentiable and the parameters require grad; the
+    serving callers (the evaluator and make_scene) run under no_grad."""
+    import numpy as np
+    import torch
+
+    from dogs_tpu_torch.core import params_from_numpy
+    from dogs_tpu_torch.data import synthetic
+    from dogs_tpu_torch.eval.evaluator import EvalConfig, GaussianSplatEvaluator
+    from dogs_tpu_torch.fields.model import GaussianModelState
+
+    scene = synthetic.make_scene(n_gaussians=24, n_cams=2, width=40, height=32, seed=1)
+    assert not any(img.requires_grad for img in scene.images)
+    params = params_from_numpy(synthetic.gt_params_arrays(24, seed=1))
+    assert params.xyz.requires_grad
+    n = params.capacity
+    model = GaussianModelState(params, torch.ones(n, dtype=torch.bool), torch.zeros(n),
+                               torch.zeros(n), torch.zeros(n))
+    ev = GaussianSplatEvaluator(model, cfg=EvalConfig(output_dir=str(tmp_path), save_images=False,
+                                                      active_sh_degree=2))
+    img = ev.render(scene.cameras[0])
+    assert not img.requires_grad and img.grad_fn is None
+    metrics = ev.eval(scene.cameras, [np.asarray(i) for i in scene.images])
+    assert metrics["mean"]["psnr"] > 20.0
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):

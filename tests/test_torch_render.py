@@ -30,8 +30,9 @@ def compare_render(arrays, view, jcfg, deg=2, antialiasing=False, **kw):
     tkw = {k: torch.from_numpy(v) for k, v in kw.items()}
     a = j_render(jax_params(arrays), j_look_at(**view), jcfg, background=jnp.asarray(BG),
                  active_sh_degree=deg, **jkw)
-    b = render_tiled(params_from_numpy(arrays), look_at_camera(**view), tcfg,
-                     background=torch.from_numpy(BG), active_sh_degree=deg, **tkw)
+    with torch.no_grad():
+        b = render_tiled(params_from_numpy(arrays), look_at_camera(**view), tcfg,
+                         background=torch.from_numpy(BG), active_sh_degree=deg, **tkw)
     assert b.image.shape == (view["height"], view["width"], 3)
     for f in ("image", "alpha", "invdepth"):
         np.testing.assert_allclose(getattr(b, f).numpy(), np.asarray(getattr(a, f)), atol=ATOL,
