@@ -28,10 +28,14 @@ VJP, sparse Adam), in phases:
               |g|, none past 0.05
   6. train    30 full-width make_train_step steps from a perturbed bench
               model toward plain-path renders of the unperturbed one (loss
-              must fall); ms per step and a per-stage breakdown; then
-              GaussianSplatTrainer from points on a small scene, 30 steps
-              (val PSNR must rise)
-  7. report   per-kernel JSON line, then the device JSON line (last line)
+              must fall); ms per step, peak memory and a per-stage breakdown;
+              each kernel timed alone against its plain version (and the
+              PyTorch gather ent_n[sorted_idx] the fused blends replace), and
+              the blend's pairs counted by the plain path for the bounds;
+              then GaussianSplatTrainer from points on a small scene, 30
+              steps (val PSNR must rise)
+  7. report   per-kernel JSON line (time, plain time, bound, share, library
+              call time), then the device JSON line (last line)
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after; a kernel of the path that was not launched fails the run.
@@ -52,6 +56,17 @@ import torch
 SMALL_ATOL = 3e-4
 GRAD_ATOL = 2e-3  # max-normalized, tests/test_pallas_blend.py:58-61
 SEG_ATOL = 1e-5
+# Bounds (the H100 SXM's published peaks at a 700 W limit):
+# f32 outside the tensor cores, and HBM.
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
+# Flops per (pixel, entry) pair of the blends: every visited pair (dx, dy,
+# the quadratic form, min, exp, x opa, min, the 1/255 test) and on top per
+# contributing pair (forward: log1p, the log T add and test, exp, w, four
+# FMAs, A += w; backward: the direct term, the prefix, d_alpha with its
+# division, d_power, the ten gradients and their ten sums).
+FLOPS_VISITED = 16
+FLOPS_CONTRIB = {"blend_forward": 15, "blend_backward": 55}
 ROUNDS = 3  # serving rounds over the 8 bench cameras
 PSNR_MIN = 50.0
 TRAIN_STEPS = 30
@@ -114,7 +129,7 @@ def main() -> int:
     from dogs_tpu_torch.raster.binning import build_tile_bins
     from dogs_tpu_torch.raster.projection import project_gaussians
     from dogs_tpu_torch.raster.ssim import ssim
-    from dogs_tpu_torch.raster.tiled import RasterConfig, render_tiled, sorted_entries
+    from dogs_tpu_torch.raster.tiled import RasterConfig, entry_matrix, render_tiled
     from dogs_tpu_torch.train import trainer as trainer_mod
 
     dev = torch.device("cuda", 0)
@@ -163,14 +178,13 @@ def main() -> int:
     def frame_inputs(params, cam, sh_degree, mt=cfg.max_tiles_per_gaussian):
         proj = project_gaussians(params, cam, active_sh_degree=sh_degree)
         bins = build_tile_bins(proj, cam.height, cam.width, max_tiles_per_gaussian=mt)
-        ent = sorted_entries(proj, bins)
         nty, ntx = -(-cam.height // blend.TILE), -(-cam.width // blend.TILE)
-        return (ent, bins.tile_starts, nty, ntx, cam.width, cam.height), bins
+        return (entry_matrix(proj), bins.sorted_idx, bins.tile_starts, nty, ntx, cam.width, cam.height), bins
 
     def random_cot(args, seed):
         """Cotangent drawn from a seeded generator, Gtot from the plain
         forward totals, zero past the image edge (where untile crops)."""
-        _, _, nty, ntx, w, h = args
+        *_, nty, ntx, w, h = args
         g = torch.Generator(device=dev).manual_seed(seed)
         t = nty * ntx
         p = torch.arange(256, device=dev)
@@ -202,22 +216,22 @@ def main() -> int:
         for name, (arrays, view, deg) in small.items():
             params = params_from_numpy(arrays, dev)
             args, bins = frame_inputs(params, look_at_camera(**view, device=dev), deg, mt=36)
-            got = blend.blend_forward(*args)
+            ent_n, idx, starts, *grid = args
             want = blend.blend_forward_reference(*args)
+            got = blend.blend_forward(*args)
             torch.cuda.synchronize()
             check(bool(torch.isfinite(got).all()), f"{name}: non-finite kernel output")
             err = float((got - want).abs().max())
-            empty = int((args[1][1:] == args[1][:-1]).sum())
-            print(f"[parity] {name} forward: K={args[0].shape[0]} empty_tiles={empty} max|d|={err:.3e}")
+            empty = int((starts[1:] == starts[:-1]).sum())
+            print(f"[parity] {name} forward: K={idx.shape[0]} empty_tiles={empty} max|d|={err:.3e}")
             check(err <= SMALL_ATOL, f"{name}: forward kernel vs plain max|d| {err} > {SMALL_ATOL}")
             max_err["fwd"] = max(max_err["fwd"], err)
 
             cot = random_cot(args, seed=7)
             for thr in (0.0, 4.5):
-                kw = dict(depth_threshold=thr)
-                d1 = blend.blend_backward(args[0], args[1], cot, *args[2:], **kw)
-                d2 = blend.blend_backward(args[0], args[1], cot, *args[2:], **kw)
-                dref = blend.blend_backward_reference(args[0], args[1], cot, *args[2:], **kw)
+                d1 = blend.blend_backward(ent_n, idx, starts, cot, *grid, depth_threshold=thr)
+                d2 = blend.blend_backward(ent_n, idx, starts, cot, *grid, depth_threshold=thr)
+                dref = blend.blend_backward_reference(ent_n, idx, starts, cot, *grid, depth_threshold=thr)
                 torch.cuda.synchronize()
                 check(bool(torch.isfinite(d1).all()), f"{name}: non-finite backward output")
                 check(torch.equal(d1, d2), f"{name}: blend_backward is not deterministic")
@@ -232,7 +246,7 @@ def main() -> int:
                 check(worst <= GRAD_ATOL, f"{name}: backward kernel vs plain {worst} > {GRAD_ATOL}")
                 max_err["bwd"] = max(max_err["bwd"], err)
 
-            ids, vals = reduce.sort_by_gaussian(d1, bins.sorted_idx, "f32")
+            ids, vals = reduce.sort_by_gaussian(d1, idx, "f32")
             n_out = params.capacity
             s1 = reduce.sorted_segment_sum(ids, vals, n_out)
             s2 = reduce.sorted_segment_sum(ids, vals, n_out)
@@ -438,21 +452,30 @@ def main() -> int:
 
     # Each kernel alone against its plain version on bench camera 0: the
     # forward at the serving shapes (as PR 1 timed it), then all three at
-    # the training shapes (max_tiles_per_gaussian 12).
+    # the training shapes (max_tiles_per_gaussian 12), beside the PyTorch
+    # gather ent_n[sorted_idx] that the fused blends replace, the library
+    # call that computes K3's function, and the pairs the plain path counts
+    # for the bounds.
     with torch.no_grad():
         args, _ = frame_inputs(params, cams[0], 3)
+        ent_n, idx = args[0], args[1]
         serve_ms = [cuda_ms(lambda: blend.blend_forward(*args), 50) for _ in range(2)]
-        print(f"[kernels] blend_forward on bench cam 0 at serving shapes (K={args[0].shape[0]}): "
-              f"kernel {serve_ms[0]:.3f}/{serve_ms[1]:.3f} ms")
+        serve_gather = [cuda_ms(lambda: ent_n[idx].contiguous(), 50) for _ in range(2)]
+        print(f"[kernels] blend_forward on bench cam 0 at serving shapes (K={idx.shape[0]}): "
+              f"kernel {serve_ms[0]:.3f}/{serve_ms[1]:.3f} ms; the gather it fuses, alone: "
+              f"{serve_gather[0]:.3f}/{serve_gather[1]:.3f} ms")
         args, bins = frame_inputs(params, cams[0], 3, mt=BENCH_MT)
+        ent_n, idx, starts, *grid = args
+        k = idx.shape[0]
         cot = random_cot(args, seed=11)
-        d_ent = blend.blend_backward(args[0], args[1], cot, *args[2:])
-        ids, vals = reduce.sort_by_gaussian(d_ent, bins.sorted_idx, "f32")
+        d_ent = blend.blend_backward(ent_n, idx, starts, cot, *grid)
+        ids, vals = reduce.sort_by_gaussian(d_ent, idx, "f32")
+        ids64, zero10 = ids.long(), torch.zeros((n, blend.N_GRADS), device=dev)
         timing = {
             "blend_forward": (lambda: blend.blend_forward(*args),
                               lambda: blend.blend_forward_reference(*args)),
-            "blend_backward": (lambda: blend.blend_backward(args[0], args[1], cot, *args[2:]),
-                               lambda: blend.blend_backward_reference(args[0], args[1], cot, *args[2:])),
+            "blend_backward": (lambda: blend.blend_backward(ent_n, idx, starts, cot, *grid),
+                               lambda: blend.blend_backward_reference(ent_n, idx, starts, cot, *grid)),
             "sorted_segment_sum": (lambda: reduce.sorted_segment_sum(ids, vals, n),
                                    lambda: reduce.sorted_segment_sum_reference(ids, vals, n)),
         }
@@ -461,8 +484,41 @@ def main() -> int:
             many = 3 if name != "sorted_segment_sum" else 20
             ms = [cuda_ms(kfn, 50), cuda_ms(pfn, many), cuda_ms(kfn, 50), cuda_ms(pfn, many)]
             kernel_ms[name], plain_ms[name] = min(ms[0], ms[2]), min(ms[1], ms[3])
-            print(f"[kernels] {name} on bench cam 0 (K={args[0].shape[0]}): kernel "
+            print(f"[kernels] {name} on bench cam 0 (K={k}): kernel "
                   f"{ms[0]:.3f}/{ms[2]:.3f} ms, plain {ms[1]:.3f}/{ms[3]:.3f} ms")
+        gather_ms = min(cuda_ms(lambda: ent_n[idx].contiguous(), 50) for _ in range(2))
+        library_ms = {
+            "blend_forward": None,  # no one PyTorch call computes the blends
+            "blend_backward": None,
+            "sorted_segment_sum": min(cuda_ms(lambda: torch.index_add(zero10, 0, ids64, vals), 50)
+                                      for _ in range(2)),
+        }
+        print(f"[kernels] the gather ent_n[sorted_idx] the fused blends replace, alone: {gather_ms:.3f} ms; "
+              f"index_add_ (K3's function): {library_ms['sorted_segment_sum']:.3f} ms")
+
+        # Bounds from this run's inputs: the pairs the plain path visits and
+        # the bytes each function must move (inputs read once, outputs
+        # written once).
+        work = blend.blend_work(*args)
+        n_tiles = grid[0] * grid[1]
+        moved = {
+            "blend_forward": 4 * (ent_n.numel() + k + starts.numel() + n_tiles * blend.OUT_ROWS * 256),
+            "blend_backward": 4 * (ent_n.numel() + k + starts.numel() + cot.numel() + k * blend.ENT_WIDTH),
+            "sorted_segment_sum": 4 * (k + vals.numel() + n * blend.ENT_WIDTH),
+        }
+        flops = {name: FLOPS_VISITED * work.visited + FLOPS_CONTRIB[name] * work.contributing
+                 for name in FLOPS_CONTRIB}
+        flops["sorted_segment_sum"] = vals.numel()  # one add per value
+        bounds = {}
+        for name in timing:
+            byte_ms = moved[name] / PEAK_BYTES_PER_S * 1e3
+            op_ms = flops[name] / PEAK_F32_FLOPS * 1e3
+            bounds[name] = (max(byte_ms, op_ms), "operations" if op_ms >= byte_ms else "bytes")
+            print(f"[bounds] {name}: {flops[name]:,} flops -> {op_ms:.4f} ms; {moved[name]:,} bytes -> "
+                  f"{byte_ms:.4f} ms; bound {bounds[name][0]:.4f} ms by {bounds[name][1]}, "
+                  f"share {bounds[name][0] / kernel_ms[name]:.3f}")
+        print(f"[bounds] pairs at the training shapes (K={k}): visited {work.visited:,} "
+              f"(at most K x 256 = {k * 256:,}), contributing {work.contributing:,}")
     del ts, train_model, step
 
     # ---- 6b. train (main path 3): the host loop from points ----------------
@@ -504,6 +560,10 @@ def main() -> int:
             "max_abs_err": max_err[key],
             "ms": kernel_ms[name],
             "plain_ms": plain_ms[name],
+            "bound_ms": bounds[name][0],
+            "bound_by": bounds[name][1],
+            "share": bounds[name][0] / kernel_ms[name],
+            "library_ms": library_ms[name],
         }
         for name, (src, tpu, key) in sources.items()
     ]}))

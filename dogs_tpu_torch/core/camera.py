@@ -55,7 +55,7 @@ def make_camera(
     image_index: int = 0,
     near: float = 0.01,
     far: float = 100.0,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> Camera:
     """Build a Camera from host-side numpy/pose data (cast to float32)."""
 

@@ -73,7 +73,7 @@ def inverse_sigmoid(x: torch.Tensor) -> torch.Tensor:
 
 
 def empty_params(
-    capacity: int, max_sh_degree: int = 3, device: torch.device | str = "cpu"
+    capacity: int, max_sh_degree: int = 3, device: torch.device | str = "cuda"
 ) -> GaussianParams:
     """Inert padded parameter buffers (tiny scale, near-zero opacity)."""
     k = (max_sh_degree + 1) ** 2
@@ -91,7 +91,7 @@ def empty_params(
 
 
 def params_from_numpy(
-    arrays: dict[str, np.ndarray], device: torch.device | str = "cpu"
+    arrays: dict[str, np.ndarray], device: torch.device | str = "cuda"
 ) -> GaussianParams:
     """Build `GaussianParams` from the six named numpy arrays (a JAX model's
     leaves, `np.asarray(getattr(jax_params, name))`), as float32 on `device`."""

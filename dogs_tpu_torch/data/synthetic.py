@@ -58,14 +58,14 @@ def gt_params_arrays(n: int, seed: int, max_sh_degree: int = 2, spread: float = 
 
 def make_gt_params(
     n: int, seed: int, max_sh_degree: int = 2, spread: float = 1.0,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> GaussianParams:
     return params_from_numpy(gt_params_arrays(n, seed, max_sh_degree, spread), device)
 
 
 def ring_cameras(
     n_cams: int, radius: float, width: int, height: int, focal: float,
-    elevation: float = -0.8, device: torch.device | str = "cpu",
+    elevation: float = -0.8, device: torch.device | str = "cuda",
 ) -> list[Camera]:
     cams = []
     for i in range(n_cams):
@@ -89,7 +89,7 @@ def make_scene(
     seed: int = 0,
     max_sh_degree: int = 2,
     raster_cfg: RasterConfig | None = None,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> SyntheticScene:
     cfg = raster_cfg or RasterConfig()
     gt = make_gt_params(n_gaussians, seed, max_sh_degree, device=device)
@@ -124,11 +124,11 @@ def bench_scene_arrays(n: int, seed: int = 0) -> dict[str, np.ndarray]:
     )
 
 
-def bench_scene(n: int = BENCH_GAUSSIANS, seed: int = 0, device: torch.device | str = "cpu"):
+def bench_scene(n: int = BENCH_GAUSSIANS, seed: int = 0, device: torch.device | str = "cuda"):
     return params_from_numpy(bench_scene_arrays(n, seed), device)
 
 
-def bench_cameras(n_cams: int = 8, device: torch.device | str = "cpu") -> list[Camera]:
+def bench_cameras(n_cams: int = 8, device: torch.device | str = "cuda") -> list[Camera]:
     """bench.py's cameras: looking into the scene box from slightly different
     angles (~±4.5 deg yaw), 1152x864, f = 1000."""
     cams = []

@@ -37,7 +37,7 @@ class GaussianModelState:
         return self.alive.sum(dtype=torch.int32)
 
 
-def fresh_stats(capacity: int, device: torch.device | str = "cpu"):
+def fresh_stats(capacity: int, device: torch.device | str = "cuda"):
     """Zeroed (grad_accum, denom, max_radii2d)."""
     return tuple(torch.zeros((capacity,), dtype=torch.float32, device=device) for _ in range(3))
 
@@ -47,7 +47,7 @@ def init_from_points(
     colors: np.ndarray | torch.Tensor,
     capacity: int,
     max_sh_degree: int = 3,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> GaussianModelState:
     """Initialise from a point cloud, as dogs_tpu's init_from_points (the
     reference init_from_colmap_pcd): DC SH from RGB, isotropic log-scale from

@@ -27,7 +27,7 @@ from dogs_tpu_torch.raster.projection import ALPHA_MIN, ProjectedGaussians
 class TileBins:
     """Sorted splat lists per tile; K = num_valid entries, no padding."""
 
-    sorted_idx: torch.Tensor  # (K,) int64 gaussian index per entry
+    sorted_idx: torch.Tensor  # (K,) int32 gaussian index per entry
     sorted_tile: torch.Tensor  # (K,) int32 tile id per entry
     tile_starts: torch.Tensor  # (n_tiles + 1,) int32 range offsets
     num_valid: int  # K: (gaussian, tile) entries kept (telemetry)
@@ -157,7 +157,7 @@ def build_tile_bins(
     tile = (tiy * n_tiles_x + tix).to(torch.int32)
     key = (tile << depth_bits) | dq[gid]
     sorted_key, order = torch.sort(key, stable=True)
-    sorted_idx = gid[order]
+    sorted_idx = gid[order].to(torch.int32)
     sorted_tile = sorted_key >> depth_bits
     tile_starts = torch.searchsorted(
         sorted_tile, torch.arange(n_tiles + 1, dtype=torch.int32, device=device), side="left"

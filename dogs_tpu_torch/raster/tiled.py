@@ -1,14 +1,16 @@
 """Tiled rasterizer, differentiable.
 
 Port of dogs_tpu/raster/tiled.py:render_tiled: project -> bin -> build the
-N-space entry matrix -> gather it to sorted order -> blend -> composite the
-background -> untile and crop. The gather and the blend are one
-`torch.autograd.Function` (`_TileBlend`) whose backward is the blend
-backward plus the K -> N reduce (an id sort and a segment sum). The blends
-and the segment sum are hand-written Hopper kernels (raster/blend.py,
-raster/reduce.py) for CUDA tensors and their plain PyTorch versions for CPU
-tensors. There is no fallback between them: a kernel that fails to build or
-launch raises. Projection's gradient is torch autograd.
+N-space entry matrix -> blend its rows in sorted order -> composite the
+background -> untile and crop. The blend is one `torch.autograd.Function`
+(`_TileBlend`) that reads the N-space matrix through the sorted entry ids
+(the kernels gather rows themselves; no sorted (K, 16) copy is made), and
+whose backward is the blend backward plus the K -> N reduce (an id sort and
+a segment sum). The blends and the segment sum are hand-written Hopper
+kernels (raster/blend.py, raster/reduce.py) for CUDA tensors and their plain
+PyTorch versions for CPU tensors. There is no fallback between them: a
+kernel that fails to build or launch raises. Projection's gradient is torch
+autograd.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ import torch
 from dogs_tpu_torch.core.camera import Camera
 from dogs_tpu_torch.core.gaussians import GaussianParams
 from dogs_tpu_torch.raster import blend, reduce
-from dogs_tpu_torch.raster.binning import TileBins, build_tile_bins
+from dogs_tpu_torch.raster.binning import build_tile_bins
 from dogs_tpu_torch.raster.projection import ProjectedGaussians, project_gaussians
 
 
@@ -91,65 +93,58 @@ def entry_matrix(proj: ProjectedGaussians, invd_offset: torch.Tensor | None = No
     )
 
 
-def sorted_entries(
-    proj: ProjectedGaussians, bins: TileBins, invd_offset: torch.Tensor | None = None
-) -> torch.Tensor:
-    """The (K, 16) entry matrix in sorted (tile, depth) order, as the blend
-    kernels read it."""
-    return entry_matrix(proj, invd_offset)[bins.sorted_idx].contiguous()
-
-
 class _TileBlend(torch.autograd.Function):
     """Alpha blending over tiles with a hand-written backward: the port of
     dogs_tpu/raster/tiled.py:_blend_with_vjp_pallas.
 
     Inputs: the N-space entry matrix `ent_n` (N, 16) and the background (3,)
-    carry gradients; `sorted_idx`, `starts`, the tile grid and the config do
-    not. Outputs (T, P, 3) background-composited colour, (T, P) alpha and
-    (T, P) inverse depth.
+    carry gradients; `sorted_idx` (K,) int32, `starts`, the tile grid and
+    the config do not. Outputs (T, P, 3) background-composited colour,
+    (T, P) alpha and (T, P) inverse depth.
 
-    The gather into sorted order happens inside, so that the K -> N reduce of
-    the backward is the id sort plus the segment-sum kernel (raster/reduce.py)
-    and not autograd's scatter-add for `index`. On CUDA tensors with
-    `cfg.use_kernel` the forward launches the blend forward kernel and the
-    backward the blend backward and segment-sum kernels; otherwise all three
-    are their plain versions.
+    The blends read `ent_n` through `sorted_idx`, so the gradient comes back
+    per sorted entry and the K -> N reduce of the backward is the id sort
+    plus the segment-sum kernel (raster/reduce.py), not autograd's
+    scatter-add for an index. On CUDA tensors with `cfg.use_kernel` the
+    forward launches the blend forward kernel and the backward the blend
+    backward and segment-sum kernels; otherwise all three are their plain
+    versions. Saved for the backward: `ent_n`, `sorted_idx`, `starts`, the
+    background and the (T, 5, P) forward output.
     """
 
     @staticmethod
     def forward(ctx, ent_n, background, sorted_idx, starts, grid, cfg):
-        ent = ent_n[sorted_idx].contiguous()
-        args = (ent, starts, *grid)
-        if ent.is_cuda and cfg.use_kernel:
+        args = (ent_n, sorted_idx, starts, *grid)
+        if ent_n.is_cuda and cfg.use_kernel:
             out = blend.blend_forward(*args)
         else:
             out = blend.blend_forward_reference(*args, tile_size=cfg.tile_size)
         # out: (T, 5, P) rows R, G, B, A, invD, no background.
         aa = out[:, 3]
         img = out[:, 0:3].transpose(1, 2) + (1.0 - aa)[..., None] * background
-        ctx.save_for_backward(ent, sorted_idx, starts, background, out)
-        ctx.grid, ctx.cfg, ctx.n_out = grid, cfg, ent_n.shape[0]
+        ctx.save_for_backward(ent_n, sorted_idx, starts, background, out)
+        ctx.grid, ctx.cfg = grid, cfg
         return img, aa, out[:, 4]
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, cot_img, cot_a, cot_d):
-        ent, sorted_idx, starts, background, out = ctx.saved_tensors
+        ent_n, sorted_idx, starts, background, out = ctx.saved_tensors
         cfg = ctx.cfg
         aa = out[:, 3]
         d_bg = (cot_img * (1.0 - aa)[..., None]).sum(dim=(0, 1))
         if not ctx.needs_input_grad[0]:
             return None, d_bg, None, None, None, None
         cot = blend.backward_cotangent(out, cot_img, cot_a, cot_d, background)
-        args = (ent, starts, cot, *ctx.grid)
-        use_kernel = ent.is_cuda and cfg.use_kernel
+        args = (ent_n, sorted_idx, starts, cot, *ctx.grid)
+        use_kernel = ent_n.is_cuda and cfg.use_kernel
         if use_kernel:
             d_ent = blend.blend_backward(*args, depth_threshold=cfg.depth_threshold)
         else:
             d_ent = blend.blend_backward_reference(
                 *args, depth_threshold=cfg.depth_threshold, tile_size=cfg.tile_size
             )
-        d_ent_n = reduce.reduce_entries(d_ent, sorted_idx, ctx.n_out, cfg.reduce_dtype, use_kernel)
+        d_ent_n = reduce.reduce_entries(d_ent, sorted_idx, ent_n.shape[0], cfg.reduce_dtype, use_kernel)
         return d_ent_n, d_bg, None, None, None, None
 
 

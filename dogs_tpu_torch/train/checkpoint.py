@@ -48,7 +48,7 @@ def _model_state(data, prefix: str, device) -> GaussianModelState:
     return GaussianModelState(params=params, alive=alive, **stats)
 
 
-def load_jax_checkpoint(path: str, device: torch.device | str = "cpu") -> GaussianModelState:
+def load_jax_checkpoint(path: str, device: torch.device | str = "cuda") -> GaussianModelState:
     """Load a `dogs_tpu` model or trainer checkpoint as a `GaussianModelState`."""
     with _open(path) as data:
         for prefix in ("", ".model/"):
@@ -60,7 +60,7 @@ def load_jax_checkpoint(path: str, device: torch.device | str = "cpu") -> Gaussi
     )
 
 
-def load_jax_train_state(path: str, device: torch.device | str = "cpu") -> TrainState:
+def load_jax_train_state(path: str, device: torch.device | str = "cuda") -> TrainState:
     """Load a `dogs_tpu` trainer checkpoint (a saved `TrainState`) as the
     port's `TrainState`: the model, the sparse-Adam moments and the step.
     The JAX state's per-image fields (exposure, appearance mask, pose deltas)

@@ -146,7 +146,7 @@ def init_train_state(
     colors: np.ndarray,
     n_images: int,
     cfg: TrainerConfig,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> TrainState:
     capacity = round_up_capacity(points.shape[0], cfg.min_capacity)
     model = init_from_points(points, colors, capacity, cfg.max_sh_degree, device)
@@ -273,7 +273,7 @@ class GaussianSplatTrainer:
         val_cameras: Sequence[Camera] = (),
         val_images: Sequence[np.ndarray | torch.Tensor] = (),
         seed: int = 42,
-        device: torch.device | str = "cpu",
+        device: torch.device | str = "cuda",
     ):
         if len(cameras) != len(images):
             raise ValueError(f"{len(cameras)} cameras but {len(images)} images")

@@ -23,7 +23,8 @@ def compare_bins(arrays, view, mt, culling=True, deg=2):
     h, w = view["height"], view["width"]
     jp = j_project(jax_params(arrays), j_look_at(**view), active_sh_degree=deg)
     jb = j_bins(jp, h, w, max_tiles_per_gaussian=mt, tile_culling=culling)
-    tp = project_gaussians(params_from_numpy(arrays), look_at_camera(**view), active_sh_degree=deg)
+    tp = project_gaussians(params_from_numpy(arrays, "cpu"), look_at_camera(**view, device="cpu"),
+                           active_sh_degree=deg)
     tb = build_tile_bins(tp, h, w, max_tiles_per_gaussian=mt, tile_culling=culling)
 
     starts = np.asarray(jb.tile_starts)

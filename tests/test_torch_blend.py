@@ -1,6 +1,8 @@
 """The port's blend against the TPU kernels K1 (pallas_stream), K4
 (pallas_blend), both in interpret mode, and the XLA blend of dogs_tpu, all
-on the same sorted entry matrix built by dogs_tpu.
+on the same sorted entry matrix built by dogs_tpu (fed to the port with
+sorted_idx = arange(K)), and the port's gather through sorted_idx from a
+permuted N-space matrix.
 
 The port's plain version is what runs here; the CUDA kernel is held against
 it on the card (chip_smoke.py and tests/test_torch_cuda.py).
@@ -69,10 +71,27 @@ def in_image(nty, ntx, w, h):
     return ((t % ntx) * TS + p % TS < w) & ((t // ntx) * TS + p // TS < h)
 
 
+def identity_idx(k):
+    return torch.arange(k, dtype=torch.int32)
+
+
+def permuted_rows(ent_n, sorted_idx, seed):
+    """The N-space rows in a random numpy order, and the sorted_idx that
+    reads the same entries from it."""
+    ent_n = np.asarray(ent_n)
+    perm = np.random.RandomState(seed).permutation(ent_n.shape[0])
+    inv = np.empty_like(perm)
+    inv[perm] = np.arange(perm.shape[0])
+    idx = inv[np.asarray(sorted_idx)].astype(np.int32)
+    return torch.from_numpy(np.ascontiguousarray(ent_n[perm])), torch.from_numpy(idx)
+
+
 def port_blend(scene):
     ent, bins, _, (nty, ntx, w, h) = jax_entries(scene)
     starts = torch.from_numpy(np.array(bins.tile_starts))
-    return blend.blend_forward_reference(torch.from_numpy(ent), starts, nty, ntx, w, h).numpy()
+    return blend.blend_forward_reference(
+        torch.from_numpy(ent), identity_idx(ent.shape[0]), starts, nty, ntx, w, h
+    ).numpy()
 
 
 def tpu_blend(scene, which):
@@ -124,10 +143,24 @@ def test_blend_reference_zeroes_empty_tiles_and_margin(scene):
         assert empty.sum() > 0
 
 
+@pytest.mark.parametrize("scene", list(SCENES))
+def test_blend_reference_reads_rows_through_sorted_idx(scene):
+    """The N-space rows in a random order with the matching sorted_idx give
+    the blend of the sorted entries, bit for bit."""
+    ent, bins, ent_n, (nty, ntx, w, h) = jax_entries(scene)
+    rows, idx = permuted_rows(ent_n, bins.sorted_idx[: ent.shape[0]], seed=5)
+    starts = torch.from_numpy(np.array(bins.tile_starts))
+    got = blend.blend_forward_reference(rows, idx, starts, nty, ntx, w, h).numpy()
+    np.testing.assert_array_equal(got, port_blend(scene))
+
+
 def test_blend_reference_checks_layout():
     ent, bins, _, (nty, ntx, w, h) = jax_entries("random_seed0")
     starts = torch.from_numpy(np.array(bins.tile_starts))
+    ent_t, idx = torch.from_numpy(ent), identity_idx(ent.shape[0])
     with pytest.raises(ValueError, match="int32"):
-        blend.blend_forward_reference(torch.from_numpy(ent), starts.long(), nty, ntx, w, h)
+        blend.blend_forward_reference(ent_t, idx, starts.long(), nty, ntx, w, h)
     with pytest.raises(ValueError, match="float32"):
-        blend.blend_forward_reference(torch.from_numpy(ent[:, :11]), starts, nty, ntx, w, h)
+        blend.blend_forward_reference(torch.from_numpy(ent[:, :11]), idx, starts, nty, ntx, w, h)
+    with pytest.raises(ValueError, match="sorted_idx"):
+        blend.blend_forward_reference(ent_t, idx.long(), starts, nty, ntx, w, h)

@@ -25,7 +25,7 @@ from dogs_tpu.raster.tiled import _blend_with_vjp
 from dogs_tpu_torch.data import synthetic
 from dogs_tpu_torch.raster import blend
 from tests.test_torch_blend import SCENES as FWD_SCENES
-from tests.test_torch_blend import in_image
+from tests.test_torch_blend import identity_idx, in_image, permuted_rows
 from tests.test_torch_core import jax_params
 
 ATOL = 2e-3  # max-normalized gradient bar of tests/test_pallas_blend.py:58-61
@@ -73,8 +73,8 @@ def case(scene):
     nty, ntx = -(-h // TS), -(-w // TS)
     grid = (nty, ntx, w, h)
     starts = torch.from_numpy(np.array(bins.tile_starts))
-    ent_t = torch.from_numpy(ent)
-    fwd = blend.blend_forward_reference(ent_t, starts, *grid).numpy()
+    ent_t, idx = torch.from_numpy(ent), identity_idx(k)
+    fwd = blend.blend_forward_reference(ent_t, idx, starts, *grid).numpy()
 
     # Cotangent of (image, alpha, invdepth) per tile pixel, zero past the
     # image edge (where untile crops); background 0, so gA_eff = cot_a.
@@ -90,7 +90,7 @@ def case(scene):
         [cot_rgb, cot_a[:, None], cot_d[:, None], g_tot[:, None], np.zeros((t, 2, TS * TS))], axis=1
     ).astype(np.float32)
     got = blend.blend_backward_reference(
-        ent_t, starts, torch.from_numpy(cot), *grid, depth_threshold=thr
+        ent_t, idx, starts, torch.from_numpy(cot), *grid, depth_threshold=thr
     ).numpy()
     return ent, bins, ent_n, grid, thr, (cot_img, cot_a, cot_d, cot), got
 
@@ -147,15 +147,32 @@ def test_blend_backward_reference_gives_zero_rows_past_saturation():
     (the kernel's zero-filled rows), and the scene does saturate."""
     ent, bins, _, grid, _, cots, got = case("saturation")
     starts = np.array(bins.tile_starts)
-    fwd = blend.blend_forward_reference(torch.from_numpy(ent), torch.from_numpy(starts), *grid)
+    fwd = blend.blend_forward_reference(
+        torch.from_numpy(ent), identity_idx(ent.shape[0]), torch.from_numpy(starts), *grid
+    )
     assert float(fwd[:, 3].max()) > 0.999  # some pixel reached T < 1e-4
     zero_rows = (got[:, :10] == 0).all(1)
     assert zero_rows.sum() > 0
     assert not zero_rows.all()
 
 
+@pytest.mark.parametrize("scene", ["random_seed0", "saturation", "depth_threshold"])
+def test_blend_backward_reference_reads_rows_through_sorted_idx(scene):
+    """The N-space rows in a random order with the matching sorted_idx give
+    the gradients of the sorted entries, bit for bit."""
+    ent, bins, ent_n, grid, thr, (_, _, _, cot), want = case(scene)
+    rows, idx = permuted_rows(ent_n, bins.sorted_idx[: ent.shape[0]], seed=6)
+    starts = torch.from_numpy(np.array(bins.tile_starts))
+    got = blend.blend_backward_reference(
+        rows, idx, starts, torch.from_numpy(cot), *grid, depth_threshold=thr
+    ).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
 def test_blend_backward_reference_checks_cot_layout():
     ent, bins, _, grid, _, (_, _, _, cot), _ = case("random_seed0")
     starts = torch.from_numpy(np.array(bins.tile_starts))
     with pytest.raises(ValueError, match="cot"):
-        blend.blend_backward_reference(torch.from_numpy(ent), starts, torch.from_numpy(cot[:, :6]), *grid)
+        blend.blend_backward_reference(
+            torch.from_numpy(ent), identity_idx(ent.shape[0]), starts, torch.from_numpy(cot[:, :6]), *grid
+        )

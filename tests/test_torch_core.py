@@ -60,10 +60,10 @@ def test_camera_properties_match(view):
         import bench
 
         j = bench._bench_cameras(8)[5]
-        t = synthetic.bench_cameras(8)[5]
+        t = synthetic.bench_cameras(8, device="cpu")[5]
     else:
         kw = synthetic.RANDOM_SCENE_VIEW if view == "random" else synthetic.SATURATION_SCENE_VIEW
-        j, t = jcam.look_at_camera(**kw), tcam.look_at_camera(**kw)
+        j, t = jcam.look_at_camera(**kw), tcam.look_at_camera(**kw, device="cpu")
     for f in ("R", "t", "fx", "fy", "cx", "cy"):
         close(getattr(t, f), getattr(j, f), atol=0, rtol=0)
     assert (t.width, t.height) == (j.width, j.height)
@@ -78,7 +78,7 @@ def test_camera_properties_match(view):
     ids=["random_scene", "gt_params"],
 )
 def test_params_from_numpy_activations_match(arrays):
-    t = tgs.params_from_numpy(arrays)
+    t = tgs.params_from_numpy(arrays, "cpu")
     j = jax_params(arrays)
     assert t.capacity == j.capacity and t.max_sh_degree == j.max_sh_degree
     close(t.scale, j.scale)
@@ -104,7 +104,7 @@ def test_synthetic_draws_match_jax_bit_for_bit():
 
 
 def test_empty_params_and_inverse_sigmoid():
-    t, j = tgs.empty_params(5, 2), jgs.empty_params(5, 2)
+    t, j = tgs.empty_params(5, 2, "cpu"), jgs.empty_params(5, 2)
     for k in tgs.PARAM_NAMES:
         close(getattr(t, k), getattr(j, k), atol=0, rtol=0)
     x = np.linspace(0.05, 0.95, 11, dtype=np.float32)

@@ -16,7 +16,7 @@ from dogs_tpu_torch.core.gaussians import PARAM_NAMES
 from dogs_tpu_torch.raster import blend, reduce
 from dogs_tpu_torch.raster.binning import build_tile_bins
 from dogs_tpu_torch.raster.projection import project_gaussians
-from dogs_tpu_torch.raster.tiled import RasterConfig, render_tiled, sorted_entries
+from dogs_tpu_torch.raster.tiled import RasterConfig, entry_matrix, render_tiled
 
 pytestmark = pytest.mark.cuda
 ATOL = 3e-4  # forward parity bar of tests/test_pallas_blend.py
@@ -26,6 +26,8 @@ MT = 36
 SCENES = {
     "random_seed0": (lambda: synthetic.random_scene_arrays(seed=0), synthetic.RANDOM_SCENE_VIEW, 2),
     "saturation": (synthetic.saturation_scene_arrays, synthetic.SATURATION_SCENE_VIEW, 1),
+    # Dense enough that whole tiles stop before their last entry.
+    "saturation_dense": (lambda: synthetic.saturation_scene_arrays(n=256), synthetic.SATURATION_SCENE_VIEW, 1),
     "empty_tiles": (
         lambda: synthetic.random_scene_arrays(n=16, seed=2, spread=0.3),
         synthetic.RANDOM_SCENE_VIEW, 2,
@@ -46,26 +48,33 @@ def cuda():
 
 @torch.no_grad()
 def blend_args(scene, dev):
-    """(entries, starts, n_tiles_y, n_tiles_x, width, height) of a scene."""
+    """(ent_n, sorted_idx, starts, n_tiles_y, n_tiles_x, width, height) of a scene."""
     make, view, deg = SCENES[scene]
     h, w = view["height"], view["width"]
     params = params_from_numpy(make(), dev)
     proj = project_gaussians(params, look_at_camera(**view, device=dev), active_sh_degree=deg)
     bins = build_tile_bins(proj, h, w, max_tiles_per_gaussian=MT)
-    return (sorted_entries(proj, bins), bins.tile_starts, -(-h // 16), -(-w // 16), w, h), bins
+    grid = (-(-h // 16), -(-w // 16), w, h)
+    return (entry_matrix(proj), bins.sorted_idx, bins.tile_starts, *grid), bins
+
+
+def in_image(args):
+    """(T, 256) mask of the tile pixels inside the image."""
+    *_, nty, ntx, w, h = args
+    dev = args[0].device
+    p = torch.arange(256, device=dev)
+    tiles = torch.arange(nty * ntx, device=dev)[:, None]
+    return (((tiles % ntx) * 16 + p % 16) < w) & (((tiles // ntx) * 16 + p // 16) < h)
 
 
 def random_cot(args, seed):
     """A cotangent drawn from a seeded generator, with Gtot from the plain
     forward totals, zero past the image edge."""
-    ent, starts, nty, ntx, w, h = args
-    dev = ent.device
+    dev = args[0].device
     out = blend.blend_forward_reference(*args)
     g = torch.Generator(device=dev).manual_seed(seed)
-    t = nty * ntx
-    p = torch.arange(256, device=dev)
-    tiles = torch.arange(t, device=dev)[:, None]
-    inside = (((tiles % ntx) * 16 + p % 16) < w) & (((tiles // ntx) * 16 + p // 16) < h)
+    inside = in_image(args)
+    t = inside.shape[0]
     cot_img = torch.randn((t, 256, 3), generator=g, device=dev) * inside[..., None]
     cot_a = torch.randn((t, 256), generator=g, device=dev) * inside
     cot_d = torch.randn((t, 256), generator=g, device=dev) * inside
@@ -112,10 +121,12 @@ def test_render_uses_kernel_on_card(cuda):
 def test_blend_backward_kernel_matches_reference_and_is_deterministic(scene, depth_threshold, cuda):
     args, _ = blend_args(scene, cuda)
     cot = random_cot(args, seed=7)
+    ent_n, idx, starts, *grid = args
+    kw = dict(depth_threshold=depth_threshold)
     before = blend.blend_backward.launches
-    got = blend.blend_backward(args[0], args[1], cot, *args[2:], depth_threshold=depth_threshold)
-    again = blend.blend_backward(args[0], args[1], cot, *args[2:], depth_threshold=depth_threshold)
-    want = blend.blend_backward_reference(args[0], args[1], cot, *args[2:], depth_threshold=depth_threshold)
+    got = blend.blend_backward(ent_n, idx, starts, cot, *grid, **kw)
+    again = blend.blend_backward(ent_n, idx, starts, cot, *grid, **kw)
+    want = blend.blend_backward_reference(ent_n, idx, starts, cot, *grid, **kw)
     torch.cuda.synchronize()
     assert blend.blend_backward.launches == before + 2
     assert torch.equal(got, again)  # no atomics: bit-identical
@@ -123,11 +134,41 @@ def test_blend_backward_kernel_matches_reference_and_is_deterministic(scene, dep
     assert_columns_close(got, want, 10, GRAD_ATOL)
 
 
+@pytest.mark.parametrize("scene", ["saturation_dense", "random_seed0"])
+def test_forward_and_backward_kernels_take_the_same_stop_decision(scene, cuda):
+    """Rows past the entry where the plain forward has stopped every pixel
+    of the tile are exactly zero in the backward kernel's output, and the
+    forward totals the backward replays (d_rgb = sum over pixels of w gC,
+    with gC a per-pixel draw) equal the forward kernel's, tile by tile."""
+    with torch.no_grad():
+        args, _ = blend_args(scene, cuda)
+        ent_n, idx, starts, *grid = args
+        work = blend.blend_work(*args)
+        fwd = blend.blend_forward(*args)
+        inside = in_image(args)
+        g = torch.Generator(device=cuda).manual_seed(9)
+        t = inside.shape[0]
+        gc = torch.rand((t, 3, 256), generator=g, device=cuda) * inside[:, None]
+        cot = torch.zeros((t, blend.COT_ROWS, 256), device=cuda)
+        cot[:, 0:3] = gc
+        d_ent = blend.blend_backward(ent_n, idx, starts, cot, *grid)
+        torch.cuda.synchronize()
+    tile_of = torch.repeat_interleave(torch.arange(t, device=cuda), (starts[1:] - starts[:-1]).long())
+    pos = torch.arange(idx.shape[0], device=cuda)
+    past = pos >= work.tile_end[tile_of]
+    if scene == "saturation_dense":
+        assert past.any()  # some tile stops before its last entry
+    assert not d_ent[past].any()
+    replayed = torch.zeros((t, 3), device=cuda).index_add_(0, tile_of, d_ent[:, 5:8])
+    totals = (gc * fwd[:, 3:4]).sum(dim=2)  # sum over pixels of gC A
+    torch.testing.assert_close(replayed, totals, atol=1e-4, rtol=1e-5)
+
+
 @pytest.mark.parametrize("scene", list(SCENES))
 def test_segment_sum_kernel_matches_reference_and_is_deterministic(scene, cuda):
     args, bins = blend_args(scene, cuda)
     g = torch.Generator(device=cuda).manual_seed(3)
-    d_ent = torch.randn((args[0].shape[0], blend.ENT_WIDTH), generator=g, device=cuda)
+    d_ent = torch.randn((args[1].shape[0], blend.ENT_WIDTH), generator=g, device=cuda)
     n = int(bins.sorted_idx.max()) + 5 if bins.sorted_idx.numel() else 5
     ids, vals = reduce.sort_by_gaussian(d_ent, bins.sorted_idx, "f32")
     before = reduce.sorted_segment_sum.launches
@@ -147,7 +188,10 @@ def test_segment_sum_kernel_long_run_and_dropped_ids(cuda):
                      torch.full((50,), 2**31 - 1, dtype=torch.int32, device=cuda)])
     vals = torch.randn((ids.shape[0], 10), generator=g, device=cuda)
     got = reduce.sorted_segment_sum(ids, vals, 8)
-    want = reduce.sorted_segment_sum_reference(ids, vals, 8)
+    # The plain version on the CPU: index_add_ there sums rows in order, as
+    # the kernel does; on the card its float atomics sum the 5000-row run in
+    # an order that changes from launch to launch.
+    want = reduce.sorted_segment_sum_reference(ids.cpu(), vals.cpu(), 8).to(cuda)
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-5)
     assert not got[1:7].any() and not got[:, 10:].any()
 

@@ -76,7 +76,7 @@ def test_load_jax_checkpoint(tmp_path, kind):
     model = jax_model()
     path = tmp_path / "model.npz"
     save_checkpoint(path, model, kind)
-    state = load_jax_checkpoint(str(path))
+    state = load_jax_checkpoint(str(path), "cpu")
     for k in ("xyz", "feat_dc", "feat_rest", "log_scale", "quat", "logit_opacity"):
         np.testing.assert_array_equal(getattr(state.params, k).detach().numpy(),
                                       np.asarray(getattr(model.params, k)), err_msg=k)
@@ -89,11 +89,11 @@ def test_load_jax_checkpoint_rejects_newer_format_and_non_models(tmp_path):
     newer = tmp_path / "newer.npz"
     np.savez(newer, __meta__=json.dumps({"format_version": 2}), **{".params/.xyz": np.zeros((1, 3))})
     with pytest.raises(ValueError, match="format_version"):
-        load_jax_checkpoint(str(newer))
+        load_jax_checkpoint(str(newer), "cpu")
     other = tmp_path / "other.npz"
     save_pytree(str(other), {"w": jnp.zeros(3)})
     with pytest.raises(KeyError, match="no model state"):
-        load_jax_checkpoint(str(other))
+        load_jax_checkpoint(str(other), "cpu")
 
 
 def test_lpips_not_ported_raises():
@@ -119,12 +119,12 @@ def test_evaluator_matches_jax_on_loaded_checkpoint(tmp_path, kind, split):
                     background=bg, active_sh_degree=2),
     )
     t_eval = GaussianSplatEvaluator(
-        load_jax_checkpoint(str(path)), RasterConfig(max_tiles_per_gaussian=36),
+        load_jax_checkpoint(str(path), "cpu"), RasterConfig(max_tiles_per_gaussian=36),
         EvalConfig(output_dir=str(tmp_path / "torch"), save_images=False, background=bg,
                    active_sh_degree=2),
     )
     want = j_eval.eval(j_ring(**ring), gt, split=split)
-    got = t_eval.eval(synthetic.ring_cameras(**ring), gt, split=split)
+    got = t_eval.eval(synthetic.ring_cameras(**ring, device="cpu"), gt, split=split)
     with open(tmp_path / "torch" / split / "metrics.json") as f:
         assert json.load(f) == got
     assert got["mean"]["num_points"] == want["mean"]["num_points"]

@@ -37,6 +37,36 @@ def test_every_module_imports_without_jax():
     assert "modules" in proc.stdout
 
 
+def test_every_device_parameter_defaults_to_the_card():
+    """Entry points run on the card unless the caller asks for the CPU."""
+    import importlib
+    import inspect
+    import pkgutil
+
+    import dogs_tpu_torch
+
+    found = []
+    for info in pkgutil.walk_packages(dogs_tpu_torch.__path__, "dogs_tpu_torch."):
+        module = importlib.import_module(info.name)
+        for name, obj in vars(module).items():
+            if getattr(obj, "__module__", None) != module.__name__:
+                continue
+            fns = [(name, obj)] if inspect.isfunction(obj) else []
+            if inspect.isclass(obj):
+                fns = [(f"{name}.{m}", f) for m, f in vars(obj).items() if inspect.isfunction(f)]
+            for qual, fn in fns:
+                param = inspect.signature(fn).parameters.get("device")
+                if param is None:
+                    continue
+                where = f"{module.__name__}.{qual}"
+                if param.default is inspect.Parameter.empty:
+                    assert qual.startswith("_"), f"{where}: public, with no default device"
+                    continue
+                assert param.default == "cuda", f"{where}: device defaults to {param.default!r}"
+                found.append(where)
+    assert len(found) >= 14, found
+
+
 def test_kernel_entry_point_raises_on_cpu_and_render_takes_plain_path():
     proc = run_python(
         "import torch\n"
@@ -45,15 +75,17 @@ def test_kernel_entry_point_raises_on_cpu_and_render_takes_plain_path():
         "from dogs_tpu_torch.raster import blend\n"
         "from dogs_tpu_torch.raster.tiled import render_tiled\n"
         "ent = torch.zeros((4, blend.ENT_WIDTH))\n"
+        "idx = torch.arange(4, dtype=torch.int32)\n"
         "starts = torch.tensor([0, 2, 4], dtype=torch.int32)\n"
         "try:\n"
-        "    blend.blend_forward(ent, starts, 1, 2, 32, 16)\n"
+        "    blend.blend_forward(ent, idx, starts, 1, 2, 32, 16)\n"
         "except ValueError as e:\n"
         "    assert 'CUDA' in str(e), e\n"
         "else:\n"
         "    raise SystemExit('blend_forward ran on CPU tensors')\n"
-        "out = render_tiled(params_from_numpy(synthetic.random_scene_arrays()),\n"
-        "                   look_at_camera(**synthetic.RANDOM_SCENE_VIEW), active_sh_degree=2)\n"
+        "out = render_tiled(params_from_numpy(synthetic.random_scene_arrays(), 'cpu'),\n"
+        "                   look_at_camera(**synthetic.RANDOM_SCENE_VIEW, device='cpu'),\n"
+        "                   active_sh_degree=2)\n"
         "assert out.image.shape == (56, 72, 3) and bool(torch.isfinite(out.image).all())\n"
         "assert blend.blend_forward.launches == 0\n"
         "from dogs_tpu_torch import kernels\n"
@@ -73,9 +105,10 @@ def test_backward_kernels_raise_on_cpu_and_render_backward_takes_plain_path():
         "from dogs_tpu_torch.raster import blend, reduce\n"
         "from dogs_tpu_torch.raster.tiled import render_tiled\n"
         "ent = torch.zeros((4, blend.ENT_WIDTH))\n"
+        "idx = torch.arange(4, dtype=torch.int32)\n"
         "starts = torch.tensor([0, 2, 4], dtype=torch.int32)\n"
         "cot = torch.zeros((2, blend.COT_ROWS, 256))\n"
-        "calls = [lambda: blend.blend_backward(ent, starts, cot, 1, 2, 32, 16),\n"
+        "calls = [lambda: blend.blend_backward(ent, idx, starts, cot, 1, 2, 32, 16),\n"
         "         lambda: reduce.sorted_segment_sum(starts[:2].clone(), torch.zeros((2, 10)), 3)]\n"
         "for call in calls:\n"
         "    try:\n"
@@ -84,8 +117,9 @@ def test_backward_kernels_raise_on_cpu_and_render_backward_takes_plain_path():
         "        assert 'CUDA' in str(e), e\n"
         "    else:\n"
         "        raise SystemExit('a kernel wrapper ran on CPU tensors')\n"
-        "params = params_from_numpy(synthetic.random_scene_arrays())\n"
-        "out = render_tiled(params, look_at_camera(**synthetic.RANDOM_SCENE_VIEW), active_sh_degree=2)\n"
+        "params = params_from_numpy(synthetic.random_scene_arrays(), 'cpu')\n"
+        "out = render_tiled(params, look_at_camera(**synthetic.RANDOM_SCENE_VIEW, device='cpu'),\n"
+        "                   active_sh_degree=2)\n"
         "grads = torch.autograd.grad(out.image.sum(), list(params.parameters()))\n"
         "assert all(bool(torch.isfinite(g).all()) for g in grads)\n"
         "launches = (blend.blend_forward.launches, blend.blend_backward.launches,\n"
@@ -109,9 +143,9 @@ def test_serving_path_builds_no_graph(tmp_path):
     from dogs_tpu_torch.eval.evaluator import EvalConfig, GaussianSplatEvaluator
     from dogs_tpu_torch.fields.model import GaussianModelState
 
-    scene = synthetic.make_scene(n_gaussians=24, n_cams=2, width=40, height=32, seed=1)
+    scene = synthetic.make_scene(n_gaussians=24, n_cams=2, width=40, height=32, seed=1, device="cpu")
     assert not any(img.requires_grad for img in scene.images)
-    params = params_from_numpy(synthetic.gt_params_arrays(24, seed=1))
+    params = params_from_numpy(synthetic.gt_params_arrays(24, seed=1), "cpu")
     assert params.xyz.requires_grad
     n = params.capacity
     model = GaussianModelState(params, torch.ones(n, dtype=torch.bool), torch.zeros(n),

@@ -19,7 +19,7 @@ def assert_projection_matches(arrays, view, **kw):
     jkw = {k: (jnp.asarray(v) if isinstance(v, np.ndarray) else v) for k, v in kw.items()}
     tkw = {k: (torch.from_numpy(v) if isinstance(v, np.ndarray) else v) for k, v in kw.items()}
     j = j_project(jax_params(arrays), j_look_at(**view), **jkw)
-    t = project_gaussians(params_from_numpy(arrays), look_at_camera(**view), **tkw)
+    t = project_gaussians(params_from_numpy(arrays, "cpu"), look_at_camera(**view, device="cpu"), **tkw)
     for f in FIELDS:
         np.testing.assert_allclose(
             getattr(t, f).detach().numpy(), np.asarray(getattr(j, f)), rtol=1e-5, atol=1e-5, err_msg=f

@@ -31,7 +31,7 @@ def compare_render(arrays, view, jcfg, deg=2, antialiasing=False, **kw):
     a = j_render(jax_params(arrays), j_look_at(**view), jcfg, background=jnp.asarray(BG),
                  active_sh_degree=deg, **jkw)
     with torch.no_grad():
-        b = render_tiled(params_from_numpy(arrays), look_at_camera(**view), tcfg,
+        b = render_tiled(params_from_numpy(arrays, "cpu"), look_at_camera(**view, device="cpu"), tcfg,
                          background=torch.from_numpy(BG), active_sh_degree=deg, **tkw)
     assert b.image.shape == (view["height"], view["width"], 3)
     for f in ("image", "alpha", "invdepth"):

@@ -98,11 +98,11 @@ def port_grads(scene, tkw, names, loss=loss_terms, background=BG):
     arrays = make()
     extras = extra_inputs(names, arrays["xyz"].shape[0])
     target = np.random.RandomState(1).rand(view["height"], view["width"], 3).astype(np.float32)
-    params = params_from_numpy(arrays)
+    params = params_from_numpy(arrays, "cpu")
     ex = {k: torch.from_numpy(v).requires_grad_(True) for k, v in extras.items()}
     bg = torch.from_numpy(background).requires_grad_(True)
     cfg = RasterConfig(max_tiles_per_gaussian=36, **tkw)
-    out = render_tiled(params, look_at_camera(**view), cfg, background=bg, active_sh_degree=deg, **ex)
+    out = render_tiled(params, look_at_camera(**view, device="cpu"), cfg, background=bg, active_sh_degree=deg, **ex)
     leaves = [getattr(params, k) for k in PARAM_NAMES] + list(ex.values()) + [bg]
     # With color_override the SH leaves are unused: their gradient is zero.
     tg = torch.autograd.grad(loss(out.image, out.alpha, out.invdepth, torch.from_numpy(target)), leaves,
@@ -165,7 +165,7 @@ def test_clamp_tie_gradient_differs_only_at_background():
 
 def test_gradient_reaches_every_leaf_and_skips_binning_and_depth():
     make, view, deg = SCENES["random_seed0"]
-    params = params_from_numpy(make())
+    params = params_from_numpy(make(), "cpu")
     seen = {}
     real_bins = tiled.build_tile_bins
 
@@ -177,8 +177,8 @@ def test_gradient_reaches_every_leaf_and_skips_binning_and_depth():
 
     tiled.build_tile_bins = spy
     try:
-        out = render_tiled(params, look_at_camera(**view), RasterConfig(max_tiles_per_gaussian=36),
-                           active_sh_degree=deg)
+        out = render_tiled(params, look_at_camera(**view, device="cpu"),
+                           RasterConfig(max_tiles_per_gaussian=36), active_sh_degree=deg)
     finally:
         tiled.build_tile_bins = real_bins
     assert seen == {"binning_input_requires_grad": False}
@@ -187,11 +187,33 @@ def test_gradient_reaches_every_leaf_and_skips_binning_and_depth():
                                 [getattr(params, k) for k in PARAM_NAMES])
     for k, g in zip(PARAM_NAMES, grads):
         assert g.abs().max() > 0, k
-    proj = project_gaussians(params, look_at_camera(**view), active_sh_degree=deg)
+    proj = project_gaussians(params, look_at_camera(**view, device="cpu"), active_sh_degree=deg)
     ent_n = tiled.entry_matrix(proj)
     assert ent_n.requires_grad
     (g_depth,) = torch.autograd.grad(ent_n[:, 10].sum(), [params.xyz])
     assert not g_depth.any()  # the depth column is cut from the graph
+
+
+def test_tile_blend_saves_no_sorted_entry_matrix():
+    """The blend reads the N-space matrix through sorted_idx: the graph
+    keeps ent_n (N, 16) for the backward and no (K, 16) sorted copy."""
+    make, view, deg = SCENES["random_seed0"]
+    params = params_from_numpy(make(), "cpu")
+    cam = look_at_camera(**view, device="cpu")
+    shapes = []
+
+    def pack(t):
+        shapes.append(tuple(t.shape))
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        out = render_tiled(params, cam, RasterConfig(max_tiles_per_gaussian=36), active_sh_degree=deg)
+    n, k = params.capacity, out.bin_valid
+    assert k > n  # the scene has more entries than Gaussians
+    assert (n, 16) in shapes
+    assert (k, 16) not in shapes
+    grads = torch.autograd.grad(out.image.sum(), [params.xyz])
+    assert torch.isfinite(grads[0]).all()
 
 
 @pytest.mark.parametrize("antialiasing", [False, True])
@@ -211,9 +233,9 @@ def test_projection_gradients_match_jax(antialiasing):
         return sum(jnp.sum(getattr(proj, f) * w[f]) for f in w)
 
     jg = jax.grad(jloss, argnums=(0, 1))(jax_params(arrays), jnp.asarray(offset))
-    params = params_from_numpy(arrays)
+    params = params_from_numpy(arrays, "cpu")
     off = torch.from_numpy(offset).requires_grad_(True)
-    proj = project_gaussians(params, look_at_camera(**view), alive=torch.from_numpy(alive),
+    proj = project_gaussians(params, look_at_camera(**view, device="cpu"), alive=torch.from_numpy(alive),
                              active_sh_degree=2, antialiasing=antialiasing, means2d_offset=off)
     loss = sum((getattr(proj, f) * torch.from_numpy(w[f])).sum() for f in w)
     tg = torch.autograd.grad(loss, [getattr(params, k) for k in PARAM_NAMES] + [off])

@@ -74,7 +74,7 @@ def test_sparse_adam_step_matches():
         joptim.SparseAdamState(mu=jax_params(m), nu=jax_params(v)),
         jnp.asarray(visible), jax_params({k: np.float32(x) for k, x in lrs.items()}),
     )
-    tp = tgs.params_from_numpy(p)
+    tp = tgs.params_from_numpy(p, "cpu")
     ts = toptim.SparseAdamState(
         mu={k: torch.from_numpy(m[k].copy()) for k in NAMES},
         nu={k: torch.from_numpy(v[k].copy()) for k in NAMES},
@@ -114,7 +114,7 @@ def test_update_densify_stats_matches():
                                   **{k: jnp.asarray(v) for k, v in stats.items()}),
         jnp.asarray(grad), jnp.asarray(radii), 72, 56,
     )
-    t = tmodel.GaussianModelState(params=tgs.params_from_numpy(arrays), alive=torch.ones(n, dtype=torch.bool),
+    t = tmodel.GaussianModelState(params=tgs.params_from_numpy(arrays, "cpu"), alive=torch.ones(n, dtype=torch.bool),
                                   **{k: torch.from_numpy(v.copy()) for k, v in stats.items()})
     tmodel.update_densify_stats(t, torch.from_numpy(grad), torch.from_numpy(radii), 72, 56)
     for k in stats:
@@ -143,7 +143,7 @@ def test_init_from_points_and_capacity_helpers_match():
 
     assert cap == j_round(100, 64) == 128
     j = jmodel.init_from_points(jnp.asarray(pts), jnp.asarray(cols), cap, 2)
-    t = tmodel.init_from_points(pts, cols, cap, 2)
+    t = tmodel.init_from_points(pts, cols, cap, 2, "cpu")
     for k in NAMES:
         np.testing.assert_allclose(np_(getattr(t.params, k)), np.asarray(getattr(j.params, k)),
                                    rtol=1e-5, atol=1e-6, err_msg=k)
@@ -183,7 +183,7 @@ def trainer_cfg(**kw):
 def scenes():
     kw = dict(n_gaussians=80, n_cams=10, width=64, height=64, seed=3)
     js = j_make_scene(raster_cfg=J_RASTER, **kw)
-    ts = synthetic.make_scene(**kw)
+    ts = synthetic.make_scene(**kw, device="cpu")
     for a, b in zip(js.images, ts.images):
         np.testing.assert_allclose(b.numpy(), np.asarray(a), atol=3e-4)
     np.testing.assert_array_equal(ts.points, js.points)
@@ -229,7 +229,7 @@ def test_train_step_matches_jax_from_warm_state(scenes):
 
     tstate = ttrainer.TrainState(
         model=tmodel.GaussianModelState(
-            params=tgs.params_from_numpy(params), alive=torch.from_numpy(alive),
+            params=tgs.params_from_numpy(params, "cpu"), alive=torch.from_numpy(alive),
             **{k: torch.from_numpy(v.copy()) for k, v in stats.items()}),
         opt=toptim.SparseAdamState(mu={k: torch.from_numpy(v.copy()) for k, v in mu.items()},
                                    nu={k: torch.from_numpy(v.copy()) for k, v in nu.items()}),
@@ -274,7 +274,7 @@ def trained(scenes):
     )
     tt = ttrainer.GaussianSplatTrainer(
         ts.cameras[:8], ts.images[:8], ts.points, ts.colors, ttrainer.TrainerConfig(**trainer_cfg()),
-        T_RASTER, val_cameras=ts.cameras[8:], val_images=ts.images[8:], seed=42,
+        T_RASTER, val_cameras=ts.cameras[8:], val_images=ts.images[8:], seed=42, device="cpu",
     )
     val0 = (jt.validate()["val_psnr"], tt.validate()["val_psnr"])
     orders = []
@@ -308,6 +308,7 @@ def test_trainer_raises_at_first_host_event(scenes, event):
               prune=dict(prune_iterations=(3,)))[event]
     tt = ttrainer.GaussianSplatTrainer(
         ts.cameras[:4], ts.images[:4], ts.points, ts.colors, ttrainer.TrainerConfig(**trainer_cfg(**kw)),
+        device="cpu",
     )
     tt.train(num_iterations=2, log_every=0)
     with pytest.raises(NotImplementedError, match="item 9"):
@@ -328,7 +329,7 @@ def test_load_jax_train_state(tmp_path, trained):
     jt, _, _, _ = trained
     path = tmp_path / "ckpt.npz"
     save_pytree(str(path), jt.state, {"step": 30})
-    state = load_jax_train_state(str(path))
+    state = load_jax_train_state(str(path), "cpu")
     assert state.step == 30
     for k in NAMES:
         np.testing.assert_array_equal(np_(getattr(state.model.params, k)),
@@ -339,10 +340,10 @@ def test_load_jax_train_state(tmp_path, trained):
         np.testing.assert_array_equal(np_(getattr(state.model, k)), np.asarray(getattr(jt.state.model, k)))
     # The port resumes from it: one more step runs.
     step = ttrainer.make_train_step(ttrainer.TrainerConfig(**trainer_cfg()), T_RASTER, 4.4, 2, (0.0,) * 3)
-    cam = synthetic.ring_cameras(10, 4.0, 64, 64, 64 * 0.9)[0]
+    cam = synthetic.ring_cameras(10, 4.0, 64, 64, 64 * 0.9, device="cpu")[0]
     state, m = step(state, cam, torch.rand(64, 64, 3, generator=torch.Generator().manual_seed(0)))
     assert state.step == 31 and np.isfinite(float(m["loss"]))
     with pytest.raises(KeyError, match="trainer checkpoint"):
         model_only = tmp_path / "model.npz"
         save_pytree(str(model_only), jt.state.model)
-        load_jax_train_state(str(model_only))
+        load_jax_train_state(str(model_only), "cpu")
