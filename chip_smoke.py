@@ -8,8 +8,8 @@ Drives the port's two paths on bench.py's model (500k Gaussians, SH degree
 (GaussianSplatEvaluator.render / eval -> render_tiled -> projection, tile
 binning, the blend forward kernel, PSNR/SSIM) and training (make_train_step
 and GaussianSplatTrainer -> render_tiled forward, L1 + D-SSIM loss, the
-blend backward kernel, the id sort, the segment-sum kernel, the projection
-VJP, sparse Adam), in phases:
+blend backward kernel, the K->N index prep and the segment-sum kernel, the
+projection VJP, sparse Adam), in phases:
 
   1. device   require CUDA; print the card's name and power limit
   2. build    compile the three kernels from dogs_tpu_torch/csrc with nvcc,
@@ -17,7 +17,9 @@ VJP, sparse Adam), in phases:
   3. parity   each kernel against its plain PyTorch version on the card, on
               small scenes: blend forward at atol 3e-4; blend backward at
               max-normalized 2e-3 per column (depth_threshold 0 and 4.5);
-              segment sum at max-normalized 1e-5; two launches of the backward kernels
+              segment sum bit for bit ("f32" and "bf16"), and on one scene
+              reduce_entries bit for bit against a CPU stable id sort + row
+              gather + index_add_; two launches of the backward kernels
               give bit-identical outputs. Then the 8 bench frames forward at
               99.9% of pixels within 3e-3 (alpha 5e-3) of the frame's max,
               none past 0.05
@@ -30,8 +32,10 @@ VJP, sparse Adam), in phases:
               model toward plain-path renders of the unperturbed one (loss
               must fall); ms per step, peak memory and a per-stage breakdown;
               each kernel timed alone against its plain version (and the
-              PyTorch gather ent_n[sorted_idx] the fused blends replace), and
-              the blend's pairs counted by the plain path for the bounds;
+              PyTorch gather ent_n[sorted_idx] the fused blends replace, and
+              the K->N index prep), the segment sum bit for bit against its
+              plain version at these shapes, and the blend's pairs counted by
+              the plain path for the bounds;
               then GaussianSplatTrainer from points on a small scene, 30
               steps (val PSNR must rise)
   7. report   per-kernel JSON line (time, plain time, bound, share, library
@@ -55,7 +59,6 @@ import torch
 
 SMALL_ATOL = 3e-4
 GRAD_ATOL = 2e-3  # max-normalized, tests/test_pallas_blend.py:58-61
-SEG_ATOL = 1e-5
 # Bounds (the H100 SXM's published peaks at a 700 W limit):
 # f32 outside the tensor cores, and HBM.
 PEAK_F32_FLOPS = 67e12
@@ -198,6 +201,20 @@ def main() -> int:
             torch.zeros(3, device=dev),
         )
 
+    def check_segment_sum(label, rows, src, runs, n_out, dt):
+        """K3 against its plain version, bit for bit (the same f32 adds in
+        the same order), and over two launches."""
+        s1 = reduce.sorted_segment_sum(rows, src, runs, n_out, dt)
+        s2 = reduce.sorted_segment_sum(rows, src, runs, n_out, dt)
+        sref = reduce.sorted_segment_sum_reference(rows, src, runs, n_out, dt)
+        torch.cuda.synchronize()
+        err = float((s1 - sref).abs().max()) if n_out else 0.0
+        print(f"[parity] {label} segment sum: K={src.shape[0]} N={n_out} max|d|={err:.3e} "
+              f"equal={torch.equal(s1, sref)}")
+        check(torch.equal(s1, s2), f"{label}: sorted_segment_sum is not deterministic")
+        check(torch.equal(s1, sref), f"{label}: segment-sum kernel differs from its plain version")
+        max_err["seg"] = max(max_err["seg"], err)
+
     # ---- 3. kernels against plain on the card ------------------------------
     small = {
         "random_seed0": (synthetic.random_scene_arrays(seed=0), synthetic.RANDOM_SCENE_VIEW, 2),
@@ -246,21 +263,24 @@ def main() -> int:
                 check(worst <= GRAD_ATOL, f"{name}: backward kernel vs plain {worst} > {GRAD_ATOL}")
                 max_err["bwd"] = max(max_err["bwd"], err)
 
-            ids, vals = reduce.sort_by_gaussian(d1, idx, "f32")
             n_out = params.capacity
-            s1 = reduce.sorted_segment_sum(ids, vals, n_out)
-            s2 = reduce.sorted_segment_sum(ids, vals, n_out)
-            sref = reduce.sorted_segment_sum_reference(ids, vals, n_out)
-            torch.cuda.synchronize()
-            check(torch.equal(s1, s2), f"{name}: sorted_segment_sum is not deterministic")
-            err = float((s1 - sref).abs().max())
-            # Both sum the same f32 rows in another order (index_add_ uses
-            # atomics): a few ulps of the largest sum, so the bar is on
-            # columns scaled by their max |value|.
-            scaled = float(((s1 - sref).abs() / (sref.abs().amax(dim=0) + 1e-12)).max())
-            print(f"[parity] {name} segment sum: max|d|={err:.3e} max column-normalized |d|={scaled:.3e}")
-            check(scaled <= SEG_ATOL, f"{name}: segment-sum kernel vs plain {scaled} > {SEG_ATOL}")
-            max_err["seg"] = max(max_err["seg"], err)
+            src, runs = reduce.gaussian_runs(bins.order, idx, n_out)
+            for dt in reduce.REDUCE_DTYPES:
+                check_segment_sum(f"{name} {dt}", d1, src, runs, n_out, dt)
+            if name == "random_seed0":
+                # The id-sort form of the reduce on the CPU: a stable id sort,
+                # a row gather and index_add_, which adds rows in order there.
+                ids, perm = torch.sort(idx.cpu().long(), stable=True)
+                for dt in reduce.REDUCE_DTYPES:
+                    vals = d1.cpu()[perm, :blend.N_GRADS]
+                    if dt == "bf16":
+                        vals = vals.to(torch.bfloat16).to(torch.float32)
+                    want = torch.zeros((n_out, blend.ENT_WIDTH))
+                    want[:, :blend.N_GRADS].index_add_(0, ids, vals)
+                    got = reduce.reduce_entries(d1, bins.order, idx, n_out, dt).cpu()
+                    check(torch.equal(got, want), f"{name}: reduce_entries ({dt}) differs from the "
+                          f"CPU id sort + gather + index_add_ by {float((got - want).abs().max()):.3e}")
+                    print(f"[parity] {name} reduce_entries {dt}: equal to the CPU id sort + gather + index_add_")
 
         params = synthetic.bench_scene(device=dev)
         n = params.capacity
@@ -420,11 +440,11 @@ def main() -> int:
             run.launches = fn.launches
         return run
 
-    originals = (trainer_mod.render_tiled, blend.blend_backward, reduce.sort_by_gaussian,
+    originals = (trainer_mod.render_tiled, blend.blend_backward, reduce.gaussian_runs,
                  reduce.sorted_segment_sum, trainer_mod.sparse_adam_step)
     trainer_mod.render_tiled = wrapped(originals[0], "start", "render")
     blend.blend_backward = wrapped(originals[1], "loss fwd+bwd", "K2")
-    reduce.sort_by_gaussian = wrapped(originals[2], "-", "id sort")
+    reduce.gaussian_runs = wrapped(originals[2], "-", "K->N prep")
     reduce.sorted_segment_sum = wrapped(originals[3], "-", "K3")
     trainer_mod.sparse_adam_step = wrapped(originals[4], "projection VJP", "sparse Adam")
     stages: dict[str, list[float]] = {}
@@ -438,10 +458,10 @@ def main() -> int:
                 if label != "-":
                     stages.setdefault(label, []).append(e0.elapsed_time(e1))
     finally:
-        (trainer_mod.render_tiled, blend.blend_backward, reduce.sort_by_gaussian,
+        (trainer_mod.render_tiled, blend.blend_backward, reduce.gaussian_runs,
          reduce.sorted_segment_sum, trainer_mod.sparse_adam_step) = originals
     names = {"render": "forward render (project, bin, K1)", "loss fwd+bwd": "loss fwd + SSIM/L1 bwd",
-             "K2": "blend backward K2", "id sort": "id sort + row gather",
+             "K2": "blend backward K2", "K->N prep": "K->N index prep",
              "K3": "segment sum K3", "projection VJP": "projection + SH VJP",
              "sparse Adam": "sparse Adam", "stats+metrics": "densify stats + metrics"}
     total = sum(np.median(v) for v in stages.values())
@@ -453,9 +473,9 @@ def main() -> int:
     # Each kernel alone against its plain version on bench camera 0: the
     # forward at the serving shapes (as PR 1 timed it), then all three at
     # the training shapes (max_tiles_per_gaussian 12), beside the PyTorch
-    # gather ent_n[sorted_idx] that the fused blends replace, the library
-    # call that computes K3's function, and the pairs the plain path counts
-    # for the bounds.
+    # gather ent_n[sorted_idx] that the fused blends replace, the K->N index
+    # prep, the library call that computes K3's function, and the pairs the
+    # plain path counts for the bounds.
     with torch.no_grad():
         args, _ = frame_inputs(params, cams[0], 3)
         ent_n, idx = args[0], args[1]
@@ -469,15 +489,20 @@ def main() -> int:
         k = idx.shape[0]
         cot = random_cot(args, seed=11)
         d_ent = blend.blend_backward(ent_n, idx, starts, cot, *grid)
-        ids, vals = reduce.sort_by_gaussian(d_ent, idx, "f32")
-        ids64, zero10 = ids.long(), torch.zeros((n, blend.N_GRADS), device=dev)
+        src, runs = reduce.gaussian_runs(bins.order, idx, n)
+        for dt in reduce.REDUCE_DTYPES:
+            check_segment_sum(f"bench cam 0 training shapes {dt}", d_ent, src, runs, n, dt)
+        idx64, zero10 = idx.long(), torch.zeros((n, blend.N_GRADS), device=dev)
+        prep_ms = min(cuda_ms(lambda: reduce.gaussian_runs(bins.order, idx, n), 50) for _ in range(2))
+        bf16_ms = min(cuda_ms(lambda: reduce.sorted_segment_sum(d_ent, src, runs, n, "bf16"), 50)
+                      for _ in range(2))
         timing = {
             "blend_forward": (lambda: blend.blend_forward(*args),
                               lambda: blend.blend_forward_reference(*args)),
             "blend_backward": (lambda: blend.blend_backward(ent_n, idx, starts, cot, *grid),
                                lambda: blend.blend_backward_reference(ent_n, idx, starts, cot, *grid)),
-            "sorted_segment_sum": (lambda: reduce.sorted_segment_sum(ids, vals, n),
-                                   lambda: reduce.sorted_segment_sum_reference(ids, vals, n)),
+            "sorted_segment_sum": (lambda: reduce.sorted_segment_sum(d_ent, src, runs, n),
+                                   lambda: reduce.sorted_segment_sum_reference(d_ent, src, runs, n)),
         }
         kernel_ms, plain_ms = {}, {}
         for name, (kfn, pfn) in timing.items():
@@ -490,11 +515,14 @@ def main() -> int:
         library_ms = {
             "blend_forward": None,  # no one PyTorch call computes the blends
             "blend_backward": None,
-            "sorted_segment_sum": min(cuda_ms(lambda: torch.index_add(zero10, 0, ids64, vals), 50)
-                                      for _ in range(2)),
+            "sorted_segment_sum": min(
+                cuda_ms(lambda: torch.index_add(zero10, 0, idx64, d_ent[:, :blend.N_GRADS]), 50)
+                for _ in range(2)
+            ),
         }
         print(f"[kernels] the gather ent_n[sorted_idx] the fused blends replace, alone: {gather_ms:.3f} ms; "
-              f"index_add_ (K3's function): {library_ms['sorted_segment_sum']:.3f} ms")
+              f"index_add_ from tile order (K3's function): {library_ms['sorted_segment_sum']:.3f} ms; "
+              f"K->N index prep (gaussian_runs): {prep_ms:.4f} ms; K3 with reduce_dtype bf16: {bf16_ms:.4f} ms")
 
         # Bounds from this run's inputs: the pairs the plain path visits and
         # the bytes each function must move (inputs read once, outputs
@@ -504,11 +532,11 @@ def main() -> int:
         moved = {
             "blend_forward": 4 * (ent_n.numel() + k + starts.numel() + n_tiles * blend.OUT_ROWS * 256),
             "blend_backward": 4 * (ent_n.numel() + k + starts.numel() + cot.numel() + k * blend.ENT_WIDTH),
-            "sorted_segment_sum": 4 * (k + vals.numel() + n * blend.ENT_WIDTH),
+            "sorted_segment_sum": 4 * (k + (n + 1) + k * blend.N_GRADS + n * blend.ENT_WIDTH),
         }
         flops = {name: FLOPS_VISITED * work.visited + FLOPS_CONTRIB[name] * work.contributing
                  for name in FLOPS_CONTRIB}
-        flops["sorted_segment_sum"] = vals.numel()  # one add per value
+        flops["sorted_segment_sum"] = k * blend.N_GRADS  # one add per value
         bounds = {}
         for name in timing:
             byte_ms = moved[name] / PEAK_BYTES_PER_S * 1e3

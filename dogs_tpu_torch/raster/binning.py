@@ -30,6 +30,10 @@ class TileBins:
     sorted_idx: torch.Tensor  # (K,) int32 gaussian index per entry
     sorted_tile: torch.Tensor  # (K,) int32 tile id per entry
     tile_starts: torch.Tensor  # (n_tiles + 1,) int32 range offsets
+    # (K,) int64 the key sort's permutation: sorted position -> position in
+    # the Gaussian-major expansion (each Gaussian's tiles ascending), which
+    # the K -> N gradient reduce inverts (raster/reduce.py:gaussian_runs).
+    order: torch.Tensor
     num_valid: int  # K: (gaussian, tile) entries kept (telemetry)
     num_truncated: int  # gaussians whose rect exceeded the budget (telemetry)
 
@@ -156,6 +160,8 @@ def build_tile_bins(
     dq = torch.clamp(proj.depth, min=1e-12).view(torch.int32) >> (31 - depth_bits)
     tile = (tiy * n_tiles_x + tix).to(torch.int32)
     key = (tile << depth_bits) | dq[gid]
+    # Stable: a Gaussian's entries keep their expansion order (its tiles
+    # ascending) among equal keys, which the gradient reduce relies on.
     sorted_key, order = torch.sort(key, stable=True)
     sorted_idx = gid[order].to(torch.int32)
     sorted_tile = sorted_key >> depth_bits
@@ -166,6 +172,7 @@ def build_tile_bins(
         sorted_idx=sorted_idx,
         sorted_tile=sorted_tile,
         tile_starts=tile_starts,
+        order=order,
         num_valid=int(sorted_idx.shape[0]),
         num_truncated=int(truncated.sum()),
     )

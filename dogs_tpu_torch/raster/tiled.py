@@ -5,9 +5,10 @@ N-space entry matrix -> blend its rows in sorted order -> composite the
 background -> untile and crop. The blend is one `torch.autograd.Function`
 (`_TileBlend`) that reads the N-space matrix through the sorted entry ids
 (the kernels gather rows themselves; no sorted (K, 16) copy is made), and
-whose backward is the blend backward plus the K -> N reduce (an id sort and
-a segment sum). The blends and the segment sum are hand-written Hopper
-kernels (raster/blend.py, raster/reduce.py) for CUDA tensors and their plain
+whose backward is the blend backward plus the K -> N reduce (a segment sum
+over runs read through binning's key-sort permutation; no id sort). The
+blends and the segment sum are hand-written Hopper kernels
+(raster/blend.py, raster/reduce.py) for CUDA tensors and their plain
 PyTorch versions for CPU tensors. There is no fallback between them: a
 kernel that fails to build or launch raises. Projection's gradient is torch
 autograd.
@@ -40,8 +41,9 @@ class RasterConfig:
     per-entry gradients; "bf16" rounds each to bf16 (round to nearest even)
     before the f32 sum, as dogs_tpu does by default. The port defaults to
     "f32": on the TPU, bf16 pair packing halved the bytes the id sort moved
-    as payload, but here the sort moves int32 ids and a permutation and the
-    segment-sum kernel reads f32 rows, so bf16 buys no bytes and only rounds.
+    as payload, but here no id sort runs and the segment-sum kernel reads
+    the f32 rows and rounds them in registers, so bf16 buys no bytes and
+    only rounds.
     """
 
     tile_size: int = 16
@@ -98,22 +100,23 @@ class _TileBlend(torch.autograd.Function):
     dogs_tpu/raster/tiled.py:_blend_with_vjp_pallas.
 
     Inputs: the N-space entry matrix `ent_n` (N, 16) and the background (3,)
-    carry gradients; `sorted_idx` (K,) int32, `starts`, the tile grid and
-    the config do not. Outputs (T, P, 3) background-composited colour,
-    (T, P) alpha and (T, P) inverse depth.
+    carry gradients; `sorted_idx` (K,) int32, `starts`, binning's key-sort
+    permutation `order` (K,), the tile grid and the config do not. Outputs
+    (T, P, 3) background-composited colour, (T, P) alpha and (T, P) inverse
+    depth.
 
     The blends read `ent_n` through `sorted_idx`, so the gradient comes back
-    per sorted entry and the K -> N reduce of the backward is the id sort
-    plus the segment-sum kernel (raster/reduce.py), not autograd's
-    scatter-add for an index. On CUDA tensors with `cfg.use_kernel` the
-    forward launches the blend forward kernel and the backward the blend
-    backward and segment-sum kernels; otherwise all three are their plain
-    versions. Saved for the backward: `ent_n`, `sorted_idx`, `starts`, the
-    background and the (T, 5, P) forward output.
+    per sorted entry and the K -> N reduce of the backward is the
+    segment-sum kernel over runs that `order` gives (raster/reduce.py), not
+    autograd's scatter-add for an index. On CUDA tensors with
+    `cfg.use_kernel` the forward launches the blend forward kernel and the
+    backward the blend backward and segment-sum kernels; otherwise all three
+    are their plain versions. Saved for the backward: `ent_n`, `sorted_idx`,
+    `starts`, `order`, the background and the (T, 5, P) forward output.
     """
 
     @staticmethod
-    def forward(ctx, ent_n, background, sorted_idx, starts, grid, cfg):
+    def forward(ctx, ent_n, background, sorted_idx, starts, order, grid, cfg):
         args = (ent_n, sorted_idx, starts, *grid)
         if ent_n.is_cuda and cfg.use_kernel:
             out = blend.blend_forward(*args)
@@ -122,19 +125,19 @@ class _TileBlend(torch.autograd.Function):
         # out: (T, 5, P) rows R, G, B, A, invD, no background.
         aa = out[:, 3]
         img = out[:, 0:3].transpose(1, 2) + (1.0 - aa)[..., None] * background
-        ctx.save_for_backward(ent_n, sorted_idx, starts, background, out)
+        ctx.save_for_backward(ent_n, sorted_idx, starts, order, background, out)
         ctx.grid, ctx.cfg = grid, cfg
         return img, aa, out[:, 4]
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, cot_img, cot_a, cot_d):
-        ent_n, sorted_idx, starts, background, out = ctx.saved_tensors
+        ent_n, sorted_idx, starts, order, background, out = ctx.saved_tensors
         cfg = ctx.cfg
         aa = out[:, 3]
         d_bg = (cot_img * (1.0 - aa)[..., None]).sum(dim=(0, 1))
         if not ctx.needs_input_grad[0]:
-            return None, d_bg, None, None, None, None
+            return None, d_bg, None, None, None, None, None
         cot = blend.backward_cotangent(out, cot_img, cot_a, cot_d, background)
         args = (ent_n, sorted_idx, starts, cot, *ctx.grid)
         use_kernel = ent_n.is_cuda and cfg.use_kernel
@@ -144,8 +147,10 @@ class _TileBlend(torch.autograd.Function):
             d_ent = blend.blend_backward_reference(
                 *args, depth_threshold=cfg.depth_threshold, tile_size=cfg.tile_size
             )
-        d_ent_n = reduce.reduce_entries(d_ent, sorted_idx, ent_n.shape[0], cfg.reduce_dtype, use_kernel)
-        return d_ent_n, d_bg, None, None, None, None
+        d_ent_n = reduce.reduce_entries(
+            d_ent, order, sorted_idx, ent_n.shape[0], cfg.reduce_dtype, use_kernel
+        )
+        return d_ent_n, d_bg, None, None, None, None, None
 
 
 def _detached(proj: ProjectedGaussians) -> ProjectedGaussians:
@@ -200,7 +205,7 @@ def render_tiled(
         tile_culling=cfg.tile_culling,
     )
     img, aa, dd = _TileBlend.apply(
-        entry_matrix(proj, invd_offset), background, bins.sorted_idx, bins.tile_starts,
+        entry_matrix(proj, invd_offset), background, bins.sorted_idx, bins.tile_starts, bins.order,
         (n_tiles_y, n_tiles_x, w, h), cfg,
     )
 

@@ -3,11 +3,13 @@
 The JAX binning keeps a sentinel tail and sorts with lax.sort, which is not
 stable; the port sorts exactly the valid entries with a stable sort. So per
 tile the two hold the same id set, and the same order wherever the packed
-(tile, quantized depth) keys are distinct.
+(tile, quantized depth) keys are distinct. The stable sort's permutation is
+also what the gradient reduce reads each Gaussian's entries through.
 """
 
 import numpy as np
 import pytest
+import torch
 
 from dogs_tpu.core.camera import look_at_camera as j_look_at
 from dogs_tpu.raster.binning import build_tile_bins as j_bins
@@ -16,6 +18,7 @@ from dogs_tpu_torch.core import look_at_camera, params_from_numpy
 from dogs_tpu_torch.data import synthetic
 from dogs_tpu_torch.raster.binning import build_tile_bins, depth_bits_for
 from dogs_tpu_torch.raster.projection import project_gaussians
+from dogs_tpu_torch.raster.reduce import gaussian_runs
 from tests.test_torch_core import jax_params
 
 
@@ -69,3 +72,35 @@ def test_binning_without_culling_matches():
 def test_binning_saturation_scene_ties():
     """Dense overlapping stack: many equal quantized keys per tile."""
     compare_bins(synthetic.saturation_scene_arrays(), synthetic.SATURATION_SCENE_VIEW, mt=36, deg=1)
+
+
+@pytest.mark.parametrize(
+    "arrays, view, mt, culling, deg",
+    [
+        (lambda: synthetic.random_scene_arrays(seed=0), synthetic.RANDOM_SCENE_VIEW, 36, True, 2),
+        (lambda: synthetic.random_scene_arrays(seed=1), synthetic.RANDOM_SCENE_VIEW, 4, True, 2),
+        (lambda: synthetic.random_scene_arrays(seed=2), synthetic.RANDOM_SCENE_VIEW, 36, False, 2),
+        (synthetic.saturation_scene_arrays, synthetic.SATURATION_SCENE_VIEW, 36, True, 1),
+    ],
+    ids=["random", "truncated", "no_culling", "saturation_ties"],
+)
+def test_key_order_groups_each_gaussian_in_tile_order(arrays, view, mt, culling, deg):
+    """The inverse of the key sort's permutation lists each Gaussian's
+    entries as one run of ascending sorted positions: the runs a stable sort
+    of sorted_idx gives, which the gradient reduce reads without sorting."""
+    params = params_from_numpy(arrays(), "cpu")
+    proj = project_gaussians(params, look_at_camera(**view, device="cpu"), active_sh_degree=deg)
+    bins = build_tile_bins(proj, view["height"], view["width"], max_tiles_per_gaussian=mt,
+                           tile_culling=culling)
+    n = params.capacity
+    src, starts = gaussian_runs(bins.order, bins.sorted_idx, n)
+    assert bins.num_valid > n
+    assert starts[0] == 0 and starts[-1] == bins.num_valid
+    idx = bins.sorted_idx.numpy()
+    src_np, starts_np = src.numpy(), starts.numpy()
+    for g in range(n):
+        run = src_np[starts_np[g] : starts_np[g + 1]]
+        assert (idx[run] == g).all(), g
+        assert (np.diff(run) > 0).all(), g
+    stable = torch.sort(bins.sorted_idx, stable=True).indices
+    assert torch.equal(src.long(), stable)

@@ -164,21 +164,22 @@ def test_forward_and_backward_kernels_take_the_same_stop_decision(scene, cuda):
     torch.testing.assert_close(replayed, totals, atol=1e-4, rtol=1e-5)
 
 
+@pytest.mark.parametrize("reduce_dtype", ["f32", "bf16"])
 @pytest.mark.parametrize("scene", list(SCENES))
-def test_segment_sum_kernel_matches_reference_and_is_deterministic(scene, cuda):
+def test_segment_sum_kernel_matches_reference_and_is_deterministic(scene, reduce_dtype, cuda):
     args, bins = blend_args(scene, cuda)
     g = torch.Generator(device=cuda).manual_seed(3)
     d_ent = torch.randn((args[1].shape[0], blend.ENT_WIDTH), generator=g, device=cuda)
     n = int(bins.sorted_idx.max()) + 5 if bins.sorted_idx.numel() else 5
-    ids, vals = reduce.sort_by_gaussian(d_ent, bins.sorted_idx, "f32")
+    src, starts = reduce.gaussian_runs(bins.order, bins.sorted_idx, n)
     before = reduce.sorted_segment_sum.launches
-    got = reduce.sorted_segment_sum(ids, vals, n)
-    again = reduce.sorted_segment_sum(ids, vals, n)
-    want = reduce.sorted_segment_sum_reference(ids, vals, n)
+    got = reduce.sorted_segment_sum(d_ent, src, starts, n, reduce_dtype)
+    again = reduce.sorted_segment_sum(d_ent, src, starts, n, reduce_dtype)
+    want = reduce.sorted_segment_sum_reference(d_ent, src, starts, n, reduce_dtype)
     torch.cuda.synchronize()
     assert reduce.sorted_segment_sum.launches == before + 2
     assert torch.equal(got, again)
-    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    assert torch.equal(got, want)  # the same f32 adds in the same order
 
 
 def test_segment_sum_kernel_long_run_and_dropped_ids(cuda):
@@ -186,13 +187,14 @@ def test_segment_sum_kernel_long_run_and_dropped_ids(cuda):
     ids = torch.cat([torch.zeros(5000, dtype=torch.int32, device=cuda),
                      torch.full((300,), 7, dtype=torch.int32, device=cuda),
                      torch.full((50,), 2**31 - 1, dtype=torch.int32, device=cuda)])
-    vals = torch.randn((ids.shape[0], 10), generator=g, device=cuda)
-    got = reduce.sorted_segment_sum(ids, vals, 8)
-    # The plain version on the CPU: index_add_ there sums rows in order, as
-    # the kernel does; on the card its float atomics sum the 5000-row run in
-    # an order that changes from launch to launch.
-    want = reduce.sorted_segment_sum_reference(ids.cpu(), vals.cpu(), 8).to(cuda)
-    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-5)
+    rows = torch.randn((ids.shape[0], blend.ENT_WIDTH), generator=g, device=cuda)
+    # The runs gather their rows through a random permutation.
+    src = torch.randperm(ids.shape[0], generator=g, device=cuda).to(torch.int32)
+    _, starts = reduce.runs_from_sorted_ids(ids, 8)
+    got = reduce.sorted_segment_sum(rows, src, starts, 8)
+    want = reduce.sorted_segment_sum_reference(rows, src, starts, 8)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)  # the 5000-row run in order on both sides
     assert not got[1:7].any() and not got[:, 10:].any()
 
 

@@ -109,7 +109,7 @@ def test_backward_kernels_raise_on_cpu_and_render_backward_takes_plain_path():
         "starts = torch.tensor([0, 2, 4], dtype=torch.int32)\n"
         "cot = torch.zeros((2, blend.COT_ROWS, 256))\n"
         "calls = [lambda: blend.blend_backward(ent, idx, starts, cot, 1, 2, 32, 16),\n"
-        "         lambda: reduce.sorted_segment_sum(starts[:2].clone(), torch.zeros((2, 10)), 3)]\n"
+        "         lambda: reduce.sorted_segment_sum(ent, idx, torch.zeros(4, dtype=torch.int32), 3)]\n"
         "for call in calls:\n"
         "    try:\n"
         "        call()\n"
