@@ -9,7 +9,8 @@ Drives the port's two paths on bench.py's model (500k Gaussians, SH degree
 binning, the blend forward kernel, PSNR/SSIM) and training (make_train_step
 and GaussianSplatTrainer -> render_tiled forward, L1 + D-SSIM loss, the
 blend backward kernel, the K->N index prep and the segment-sum kernel, the
-projection VJP, sparse Adam), in phases:
+projection VJP, sparse Adam, and the host loop's densify events, opacity
+reset, capacity growth and checkpoints), in phases:
 
   1. device   require CUDA; print the card's name and power limit
   2. build    compile the three kernels from dogs_tpu_torch/csrc with nvcc,
@@ -36,8 +37,21 @@ projection VJP, sparse Adam), in phases:
               the K->N index prep), the segment sum bit for bit against its
               plain version at these shapes, and the blend's pairs counted by
               the plain path for the bounds;
-              then GaussianSplatTrainer from points on a small scene, 30
-              steps (val PSNR must rise)
+  6b. host loop  GaussianSplatTrainer from points on a small scene, 30
+              steps with densify at 10/20/30 and the opacity reset at 20 (val
+              PSNR must rise before the reset, n_alive must change, train
+              PSNR must recover after it); a checkpoint after step 20 resumed
+              in a fresh trainer for steps 21-30 must match the uninterrupted
+              run (n_alive equal, parameters within 1e-5 of each leaf's max)
+  6c. densify bench.py --densify's run at full width: 500k points, GT from a
+              second bench scene at SH 0, 150 steps with a densify event
+              every 25 (K1, K2, K3 once a step; loss falls; n_alive changes;
+              every overflow logged; no NaN in alive slots); densify_and_prune
+              + zero_moments_at under torch.cuda.set_sync_debug_mode("error");
+              ms/step, ms per event and per grow_capacity from CUDA events,
+              n_alive and capacity at each log, peak memory; then, past the
+              counted run, grow_capacity, an event and a step at the next
+              capacity bucket, and one event under torch.profiler
   7. report   per-kernel JSON line (time, plain time, bound, share, library
               call time), then the device JSON line (last line)
 
@@ -49,6 +63,7 @@ Any failed phase raises, so the exit code is non-zero. Imports no JAX.
 from __future__ import annotations
 
 import json
+import logging
 import subprocess
 import sys
 import tempfile
@@ -74,6 +89,8 @@ ROUNDS = 3  # serving rounds over the 8 bench cameras
 PSNR_MIN = 50.0
 TRAIN_STEPS = 30
 BENCH_MT = 12  # max_tiles_per_gaussian as bench.py trains the bench model
+DENSIFY_STEPS, DENSIFY_EVERY = 150, 25  # bench.py --densify's run: 6 densify events
+RESUME_TOL = 1e-5  # resumed against uninterrupted parameters, of each leaf's max
 
 
 class SmokeFailure(RuntimeError):
@@ -134,6 +151,7 @@ def main() -> int:
     from dogs_tpu_torch.raster.ssim import ssim
     from dogs_tpu_torch.raster.tiled import RasterConfig, entry_matrix, render_tiled
     from dogs_tpu_torch.train import trainer as trainer_mod
+    from dogs_tpu_torch.train.checkpoint import CheckpointManager
 
     dev = torch.device("cuda", 0)
     # Full-f32 references: matmuls and convolutions without TF32.
@@ -550,23 +568,217 @@ def main() -> int:
     del ts, train_model, step
 
     # ---- 6b. train (main path 3): the host loop from points ----------------
+    # The configuration of tests/test_torch_train.py's trainer run against
+    # the JAX trainer: densify at steps 10, 20 and 30, the opacity reset at
+    # step 20; a checkpoint after step 20 resumed in a fresh trainer.
     scene = synthetic.make_scene(n_gaussians=80, n_cams=10, width=64, height=64, seed=3, device=dev)
     hcfg = trainer_mod.TrainerConfig(
-        max_iterations=400, position_lr_max_steps=400, densify_start_iter=1000, densify_end_iter=2000,
-        opacity_reset_interval=10000, sh_increase_interval=10, max_sh_degree=2, min_capacity=128,
+        max_iterations=400, position_lr_max_steps=400, densify_start_iter=5, densification_interval=10,
+        densify_end_iter=2000, opacity_reset_interval=20, densify_grad_threshold=8e-3, percent_dense=0.1,
+        sh_increase_interval=10, max_sh_degree=2, min_capacity=128,
     )
-    loop = trainer_mod.GaussianSplatTrainer(
-        scene.cameras[:8], scene.images[:8], scene.points, scene.colors, hcfg, RasterConfig(),
-        val_cameras=scene.cameras[8:], val_images=scene.images[8:], seed=42, device=dev,
-    )
+
+    def host_loop():
+        return trainer_mod.GaussianSplatTrainer(
+            scene.cameras[:8], scene.images[:8], scene.points, scene.colors, hcfg, RasterConfig(),
+            val_cameras=scene.cameras[8:], val_images=scene.images[8:], seed=42, device=dev,
+        )
+
+    loop = host_loop()
     val0 = loop.validate()["val_psnr"]
     reset_counts()
-    loop.train(num_iterations=TRAIN_STEPS, log_every=10)
+    loop.train(num_iterations=19, log_every=1)
+    val19 = loop.validate()["val_psnr"]  # before the opacity reset
+    loop.train(num_iterations=1, log_every=1)
+    with tempfile.TemporaryDirectory() as tmp:
+        manager = CheckpointManager(tmp)
+        loop.save_checkpoint(manager)
+        resumed = host_loop()
+        check(resumed.load_checkpoint(manager) == 20, "host loop: the checkpoint did not resume at step 20")
+    loop.train(num_iterations=10, log_every=1)
+    resumed.train(num_iterations=10, log_every=1)
     add_counts("host loop", list(counted))
-    val1 = loop.validate()["val_psnr"]
-    print(f"[host loop] {TRAIN_STEPS} steps, 80 Gaussians at 64x64: val PSNR {val0:.3f} -> {val1:.3f} dB; "
-          f"train psnr " + ", ".join(f"{m['psnr']:.2f}@{m['step']}" for m in loop.metrics_history))
-    check(val1 > val0 + 1.0, f"host loop: val PSNR {val0:.3f} -> {val1:.3f} did not rise by 1 dB")
+    val30 = loop.validate()["val_psnr"]
+    alive = [int(m["n_alive"]) for m in loop.metrics_history]
+    psnr = [m["psnr"] for m in loop.metrics_history]
+    print(f"[host loop] 30 steps, 80 Gaussians at 64x64, densify at 10/20/30, opacity reset at 20: val PSNR "
+          f"{val0:.3f} -> {val19:.3f} (step 19) -> {val30:.3f} dB (step 30); n_alive "
+          f"{alive[0]} -> {alive[10]} -> {alive[20]} -> {int(loop.state.model.num_alive)}; train psnr "
+          + ", ".join(f"{v:.2f}@{i + 1}" for i, v in enumerate(psnr) if (i + 1) % 5 == 0))
+    check(val19 > val0 + 1.0, f"host loop: val PSNR {val0:.3f} -> {val19:.3f} did not rise by 1 dB")
+    check(alive[10] != alive[9] and alive[20] != alive[19], f"host loop: densify changed nothing: {alive}")
+    check(np.mean(psnr[25:]) > np.mean(psnr[20:25]), "host loop: train PSNR did not recover after the reset")
+    same_alive = int(resumed.state.model.num_alive) == int(loop.state.model.num_alive)
+    worst = 0.0
+    for k in PARAM_NAMES:
+        a, b = getattr(loop.state.model.params, k).detach(), getattr(resumed.state.model.params, k).detach()
+        worst = max(worst, float((a - b).abs().max()) / (float(a.abs().max()) + 1e-12))
+    print(f"[host loop] checkpoint at step 20, resumed for steps 21-30: n_alive "
+          f"{int(resumed.state.model.num_alive)} vs {int(loop.state.model.num_alive)} uninterrupted; "
+          f"largest parameter difference {worst:.3e} of the leaf max")
+    check(same_alive, "host loop: the resumed run has another n_alive")
+    check(worst <= RESUME_TOL, f"host loop: resumed parameters differ by {worst:.3e} > {RESUME_TOL} of the leaf max")
+    del loop, resumed
+
+    # ---- 6c. densify (main path 4): the host loop at full width ------------
+    # bench.py --densify's run: 500k points of the bench scene (colours 0.5)
+    # fitting renders of a second bench scene (seed 7) at SH 0, densify every
+    # 25 steps from step 1, capacity grown as the trainer's protocol says.
+    with torch.no_grad():
+        teacher = synthetic.bench_scene(n, seed=7, device=dev)
+        dense_gts = [render_tiled(teacher, c, kcfg, active_sh_degree=0).image for c in cams]
+        del teacher
+    dcfg = trainer_mod.TrainerConfig(densify_start_iter=1, densify_end_iter=10**6,
+                                     densification_interval=DENSIFY_EVERY, opacity_reset_interval=10**6,
+                                     spatial_lr_scale=5.0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    dloop = trainer_mod.GaussianSplatTrainer(
+        cams, dense_gts, synthetic.bench_scene_arrays(n, seed=0)["xyz"], np.full((n, 3), 0.5, np.float32),
+        dcfg, kcfg, device=dev,
+    )
+    torch.cuda.synchronize()
+    init_s, init_peak_mb = time.perf_counter() - t0, torch.cuda.max_memory_allocated(dev) / 2**20
+    print(f"[densify] ({smi}) trainer from {n:,} points (exact KNN scales): {init_s:.2f} s, "
+          f"peak memory {init_peak_mb:.0f} MiB; capacity {dloop.state.model.capacity:,}")
+
+    events: list[dict] = []
+    events_grow: list[tuple] = []
+    step_log: list[tuple[int, float, torch.Tensor]] = []
+    surgery = (trainer_mod.densify_and_prune, trainer_mod.zero_moments_at, trainer_mod.grow_capacity)
+
+    def event_mark():
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    def timed_densify(state, *a, **kw):
+        """densify_and_prune and the moment zeroing after it, with no host
+        sync allowed in between (timed_zero or the finally around the run
+        turns the check off)."""
+        ev = dict(start=event_mark(), alive_before=state.num_alive, capacity=state.capacity)
+        torch.cuda.set_sync_debug_mode("error")
+        out = surgery[0](state, *a, **kw)
+        ev.update(alive_after=out[0].num_alive, overflow=out[2])
+        events.append(ev)
+        return out
+
+    def timed_zero(opt, mask):
+        try:
+            return surgery[1](opt, mask)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            events[-1]["stop"] = event_mark()
+
+    def timed_grow(ts, new_capacity):
+        e0 = event_mark()
+        out = surgery[2](ts, new_capacity)
+        events_grow.append((ts.model.capacity, new_capacity, e0, event_mark()))
+        return out
+
+    step_iteration = dloop.train_iteration
+
+    def timed_iteration(step):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        m = step_iteration(step)
+        torch.cuda.synchronize()
+        step_log.append((step, (time.perf_counter() - t) * 1e3, m["loss"]))
+        return m
+
+    dloop.train_iteration = timed_iteration
+    records: list[logging.LogRecord] = []
+    catcher = logging.Handler(logging.WARNING)
+    catcher.emit = records.append
+    trainer_log = logging.getLogger(trainer_mod.__name__)
+    trainer_log.addHandler(catcher)
+    trainer_mod.densify_and_prune, trainer_mod.zero_moments_at, trainer_mod.grow_capacity = (
+        timed_densify, timed_zero, timed_grow)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    try:
+        dloop.train(num_iterations=DENSIFY_STEPS, log_every=DENSIFY_EVERY)
+        torch.cuda.synchronize()
+        dense_counts = add_counts("densify loop", list(counted))
+        dense_peak_mb = torch.cuda.max_memory_allocated(dev) / 2**20
+        n_events = len(events)
+        # After the counted run, at the next capacity bucket whether or not
+        # the run grew: grow_capacity, one densify event and one step.
+        torch.cuda.reset_peak_memory_stats(dev)
+        dloop.state = trainer_mod.grow_capacity(dloop.state, 2 * dloop.state.model.capacity)
+        dloop._maybe_densify(DENSIFY_STEPS)  # an event step
+        dloop.train_iteration(dloop.state.step + 1)
+        torch.cuda.synchronize()
+        grown_peak_mb = torch.cuda.max_memory_allocated(dev) / 2**20
+    finally:
+        trainer_mod.densify_and_prune, trainer_mod.zero_moments_at, trainer_mod.grow_capacity = surgery
+        trainer_log.removeHandler(catcher)
+        torch.cuda.set_sync_debug_mode(0)
+    # One more event under torch.profiler (outside the sync check): the
+    # device operations it runs and their summed time against its span.
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        e0 = event_mark()
+        dloop._maybe_densify(DENSIFY_STEPS)  # an event step
+        e1 = event_mark()
+        torch.cuda.synchronize()
+    device_ops = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.time_range.elapsed_us() for e in device_ops) / 1e3
+    profiled = (len(device_ops), busy_ms, e0.elapsed_time(e1))
+    by_name: dict[str, float] = {}
+    for e in device_ops:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    top_ops = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    for name, launches in dense_counts.items():
+        check(launches == DENSIFY_STEPS, f"densify loop: {name} launched {launches} times, "
+              f"expected one per step ({DENSIFY_STEPS})")
+    step_log = step_log[:DENSIFY_STEPS]  # the counted run
+    losses = torch.stack([loss for _, _, loss in step_log]).tolist()  # one transfer
+    check(all(np.isfinite(losses)), "densify loop: non-finite loss")
+    first, last = np.mean(losses[:DENSIFY_EVERY]), np.mean(losses[-DENSIFY_EVERY:])
+    check(last < first, f"densify loop: loss did not fall: first 25 mean {first}, last 25 mean {last}")
+    check(n_events == DENSIFY_STEPS // DENSIFY_EVERY, f"densify loop: {n_events} events")
+    check(len(events) == n_events + 1 and events[-1]["capacity"] == dloop.state.model.capacity,
+          "densify loop: no event at the grown capacity")
+    for ev in events:
+        for key in ("alive_before", "alive_after", "overflow"):
+            ev[key] = int(ev[key])
+        ev["ms"] = ev["start"].elapsed_time(ev["stop"])
+    counts = [events[0]["alive_before"]] + [ev["alive_after"] for ev in events[:n_events]]
+    check(len(set(counts)) > 1, f"densify loop: n_alive never changed: {counts}")
+    logged = sum("densify overflow" in r.getMessage() for r in records)
+    dropped = sum(ev["overflow"] > 0 for ev in events[:n_events])
+    check(logged == dropped, f"densify loop: {dropped} events dropped candidates, {logged} were logged")
+    model = dloop.state.model
+    for k in PARAM_NAMES:
+        check(bool(torch.isfinite(getattr(model.params, k)[model.alive]).all()),
+              f"densify loop: non-finite {k} among the alive slots")
+    quiet_ms = [ms for step, ms, _ in step_log if step % DENSIFY_EVERY]
+    print(f"[densify] ({smi}) {DENSIFY_STEPS} steps, an event every {DENSIFY_EVERY}: loss {losses[0]:.5f} -> "
+          f"{losses[-1]:.5f} (mean of the first 25 {first:.5f}, last 25 {last:.5f}); ms/step median over the "
+          f"{len(quiet_ms)} steps without an event {np.median(quiet_ms):.2f}, with one "
+          f"{np.median([ms for step, ms, _ in step_log if not step % DENSIFY_EVERY]):.2f}; peak memory "
+          f"{dense_peak_mb:.0f} MiB")
+    for m in dloop.metrics_history:
+        print(f"[densify] ({smi}) log at step {m['step']}: n_alive {int(m['n_alive']):,} (before the event), "
+              f"capacity {m['capacity']:,}, entries K {int(m['bin_valid']):,}")
+    for i, ev in enumerate(events):
+        label = f"event {i + 1}" if i < n_events else "after the run, one event"
+        print(f"[densify] ({smi}) {label} at capacity {ev['capacity']:,}: n_alive {ev['alive_before']:,} "
+              f"-> {ev['alive_after']:,}, overflow {ev['overflow']}; densify_and_prune + zero_moments_at "
+              f"{ev['ms']:.3f} ms (no host sync)")
+    for i, (cap0, cap1, e0, e1) in enumerate(events_grow):
+        label = "after the run" if i == len(events_grow) - 1 else "in the run"
+        print(f"[densify] ({smi}) grow_capacity {cap0:,} -> {cap1:,} ({label}): {e0.elapsed_time(e1):.3f} ms")
+    print(f"[densify] ({smi}) peak memory at capacity {dloop.state.model.capacity:,} (grow_capacity, one "
+          f"event, one step): {grown_peak_mb:.0f} MiB")
+    print(f"[densify] ({smi}) one more event at capacity {dloop.state.model.capacity:,} under torch.profiler "
+          f"(required_slots read, densify_and_prune, zero_moments_at): {profiled[0]} device operations, "
+          f"{profiled[1]:.3f} ms busy in a {profiled[2]:.3f} ms span; largest: "
+          + "; ".join(f"{name[:60]} {ms:.3f} ms" for name, ms in top_ops))
+    del dloop, dense_gts, model
 
     # ---- 7. report ---------------------------------------------------------
     sources = {

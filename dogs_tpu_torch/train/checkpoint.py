@@ -1,17 +1,24 @@
-"""Read `dogs_tpu` checkpoints (numpy only, no JAX).
+"""Checkpoints in `dogs_tpu`'s format (numpy only, no JAX): read, write and
+a manager with retention.
 
-A `dogs_tpu` checkpoint is one npz of flattened pytree leaves
-(dogs_tpu/train/checkpoint.py `save_pytree`). Leaf keys join the pytree path
-entries with "/", so a bare `GaussianModelState` stores `.params/.xyz`, ...,
-`.alive`, `.grad_accum`, `.denom`, `.max_radii2d`, and a trainer checkpoint
+A `dogs_tpu` checkpoint is one compressed npz of flattened pytree leaves
+(dogs_tpu/train/checkpoint.py `save_pytree`) plus a JSON `__meta__` entry
+(`extra` and `format_version`). Leaf keys join the pytree path entries with
+"/", so a bare `GaussianModelState` stores `.params/.xyz`, ..., `.alive`,
+`.grad_accum`, `.denom`, `.max_radii2d`, and a trainer checkpoint
 (`TrainState`) stores the same keys under `.model/`, the sparse-Adam
-moments under `.opt/.mu/` and `.opt/.nu/`, and the step as `.step`.
-Writing checkpoints comes with the host-loop slice.
+moments under `.opt/.mu/` and `.opt/.nu/`, the per-image exposure and pose
+state and the step. The port writes exactly the leaf keys, shapes and dtypes
+of a JAX `TrainState`, with the inert values of dogs_tpu's
+`train_state_from_model` for the per-image fields it does not train yet, so
+either package resumes from the other's checkpoints.
 """
 
 from __future__ import annotations
 
 import json
+import os
+import time
 
 import numpy as np
 import torch
@@ -21,14 +28,50 @@ from dogs_tpu_torch.fields.model import GaussianModelState
 from dogs_tpu_torch.train.optim import SparseAdamState
 from dogs_tpu_torch.train.trainer import TrainState
 
-FORMAT_VERSION = 1  # highest dogs_tpu checkpoint format this reader knows
+FORMAT_VERSION = 1  # the dogs_tpu checkpoint format written, and the highest read
 _STATS = ("grad_accum", "denom", "max_radii2d")
+
+
+def _leaves(ts: TrainState) -> dict[str, torch.Tensor | np.ndarray]:
+    """The leaves of a JAX `TrainState` (dogs_tpu/train/trainer.py:168-189),
+    keyed and ordered as its flattening names them: the state's tensors, and
+    for the per-image fields the port does not train yet the inert values of
+    dogs_tpu's train_state_from_model (identity exposure with zero moments,
+    zero pose deltas, (n_images, ...) each); the step is int32."""
+    model = ts.model
+    out = {f".model/.params/.{k}": getattr(model.params, k) for k in PARAM_NAMES}
+    out[".model/.alive"] = model.alive
+    out.update({f".model/.{k}": getattr(model, k) for k in _STATS})
+    for m in ("mu", "nu"):
+        out.update({f".opt/.{m}/.{k}": getattr(ts.opt, m)[k] for k in PARAM_NAMES})
+    exposure = np.tile(np.eye(3, 4, dtype=np.float32)[None], (ts.n_images, 1, 1))
+    out[".exposure"] = exposure
+    out[".exposure_mu"] = np.zeros_like(exposure)
+    out[".exposure_nu"] = np.zeros_like(exposure)
+    out[".step"] = np.asarray(ts.step, np.int32)
+    for k in ("pose_deltas", "pose_mu", "pose_nu"):
+        out[f".{k}"] = np.zeros((ts.n_images, 6), np.float32)
+    return out
+
+
+def train_state_arrays(ts: TrainState) -> dict[str, np.ndarray]:
+    """`ts` as the numpy leaves a JAX `TrainState` checkpoint holds."""
+    return {k: v.detach().cpu().numpy() if torch.is_tensor(v) else v for k, v in _leaves(ts).items()}
+
+
+def save_train_state(path: str, ts: TrainState, extra: dict | None = None) -> None:
+    """Write `ts` as dogs_tpu's `save_pytree` writes a `TrainState`."""
+    meta = {"extra": extra or {}, "format_version": FORMAT_VERSION}
+    np.savez_compressed(path, __meta__=json.dumps(meta), **train_state_arrays(ts))
+
+
+def _meta(data) -> dict:
+    return json.loads(str(data["__meta__"])) if "__meta__" in data else {}
 
 
 def _open(path: str):
     data = np.load(path, allow_pickle=False)
-    meta = json.loads(str(data["__meta__"])) if "__meta__" in data else {}
-    version = meta.get("format_version", 1)
+    version = _meta(data).get("format_version", 1)
     if version > FORMAT_VERSION:
         data.close()
         raise ValueError(
@@ -81,6 +124,98 @@ def load_jax_train_state(path: str, device: torch.device | str = "cuda") -> Trai
                 for m in ("mu", "nu")
             }
         )
+        n_images = data[".exposure"].shape[0] if ".exposure" in data else 1
         return TrainState(
-            model=_model_state(data, ".model/", device), opt=opt, step=int(data[".step"])
+            model=_model_state(data, ".model/", device), opt=opt, step=int(data[".step"]),
+            n_images=n_images,
         )
+
+
+def load_train_state(path: str, template: TrainState) -> tuple[TrainState, dict]:
+    """Load a trainer checkpoint of either package into the structure of
+    `template`, as dogs_tpu's `load_pytree`: every leaf of the template must
+    be there with the template's shape (grow or shrink the template's
+    capacity first). Returns (state on the template's device, extra)."""
+    with _open(path) as data:
+        for key, leaf in _leaves(template).items():
+            if key not in data:
+                raise KeyError(f"checkpoint missing leaf {key}")
+            if tuple(data[key].shape) != tuple(leaf.shape):
+                raise ValueError(
+                    f"checkpoint leaf {key} has shape {data[key].shape}, template expects "
+                    f"{tuple(leaf.shape)}; resize the template (capacity grow/shrink) before loading"
+                )
+        extra = _meta(data).get("extra", {})
+    return load_jax_train_state(path, template.model.params.xyz.device), extra
+
+
+class CheckpointManager:
+    """The port of dogs_tpu's CheckpointManager (the reference
+    CheckPointManager): <dir>/model_{step:06d}.npz, a model.npz copy of the
+    latest, a checkpoints.txt index, and `max_to_keep` retention (plus one
+    keeper every `keep_every_n_hours`)."""
+
+    def __init__(self, directory: str, max_to_keep: int = 3, keep_every_n_hours: float | None = None):
+        self.directory = directory
+        self.max_to_keep = max_to_keep
+        self.keep_every_n_hours = keep_every_n_hours
+        self._kept_at = 0.0
+        os.makedirs(directory, exist_ok=True)
+
+    @property
+    def index_path(self) -> str:
+        return os.path.join(self.directory, "checkpoints.txt")
+
+    def _index(self) -> list[str]:
+        if not os.path.exists(self.index_path):
+            return []
+        with open(self.index_path) as f:
+            return [ln.strip() for ln in f if ln.strip()]
+
+    def _write_index(self, names: list[str]) -> None:
+        with open(self.index_path, "w") as f:
+            f.write("\n".join(names) + ("\n" if names else ""))
+
+    def save(self, step: int, ts: TrainState, extra: dict | None = None) -> str:
+        name = f"model_{step:06d}.npz"
+        path = os.path.join(self.directory, name)
+        extra = dict(extra or {})
+        extra["step"] = int(step)
+        save_train_state(path, ts, extra)
+        latest = os.path.join(self.directory, "model.npz")
+        tmp = latest + ".tmp"
+        with open(path, "rb") as src, open(tmp, "wb") as dst:
+            dst.write(src.read())
+        os.replace(tmp, latest)
+
+        names = [n for n in self._index() if n != name] + [name]
+        now = time.time()
+        protect = set()
+        if self.keep_every_n_hours and now - self._kept_at > self.keep_every_n_hours * 3600:
+            protect.add(name)
+            self._kept_at = now
+        while len(names) > self.max_to_keep:
+            victim = next((n for n in names if n not in protect), None)
+            if victim is None or victim == names[-1]:
+                break
+            names.remove(victim)
+            victim_path = os.path.join(self.directory, victim)
+            if os.path.exists(victim_path):
+                os.remove(victim_path)
+        self._write_index(names)
+        return path
+
+    def latest_path(self) -> str | None:
+        latest = os.path.join(self.directory, "model.npz")
+        if os.path.exists(latest):
+            return latest
+        names = self._index()
+        return os.path.join(self.directory, names[-1]) if names else None
+
+    def load(self, template: TrainState, path: str | None = None) -> tuple[TrainState | None, dict]:
+        """(state, extra) from `path` or the latest checkpoint, (None, {})
+        when there is none."""
+        path = path or self.latest_path()
+        if path is None:
+            return None, {}
+        return load_train_state(path, template)

@@ -1,22 +1,27 @@
 """CUDA lane: the hand-written kernels (blend forward, blend backward,
-segment sum) against their plain PyTorch versions on the card. Every test here needs a CUDA device and skips without
-one. The file imports no JAX, so it runs on a machine with the card alone:
+segment sum) against their plain PyTorch versions on the card, and the
+densify surgery on the card against the CPU. Every test here needs a CUDA
+device and skips without one. The file imports no JAX, so it runs on a machine with the card alone:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
 (`--noconftest` skips tests/conftest.py, which sets up JAX for the CPU suite.)
 """
 
+import numpy as np
 import pytest
 import torch
 
 from dogs_tpu_torch.core import look_at_camera, params_from_numpy
 from dogs_tpu_torch.data import synthetic
 from dogs_tpu_torch.core.gaussians import PARAM_NAMES
+from dogs_tpu_torch.fields import model as tmodel
 from dogs_tpu_torch.raster import blend, reduce
 from dogs_tpu_torch.raster.binning import build_tile_bins
 from dogs_tpu_torch.raster.projection import project_gaussians
 from dogs_tpu_torch.raster.tiled import RasterConfig, entry_matrix, render_tiled
+from dogs_tpu_torch.train import trainer as ttrainer
+from dogs_tpu_torch.train.optim import SparseAdamState
 
 pytestmark = pytest.mark.cuda
 ATOL = 3e-4  # forward parity bar of tests/test_pallas_blend.py
@@ -222,3 +227,52 @@ def test_render_backward_goes_through_all_three_kernels(reduce_dtype, cuda):
     for name, a, b in zip(PARAM_NAMES + ("background",), grads[False], grads[True]):
         scale = float(a.abs().max()) + 1e-6
         torch.testing.assert_close(b / scale, a / scale, atol=GRAD_ATOL, rtol=0, msg=lambda m: f"{name}: {m}")
+
+
+def densify_inputs(device):
+    """A model state with clones, splits, every prune rule and an overflow
+    (numpy-drawn, 56 of 64 slots alive), split noise and Adam moments."""
+    rng = np.random.RandomState(7)
+    c, n = 64, 56
+    arrays = synthetic.random_scene_arrays(n=c, seed=7, max_sh_degree=1)
+    arrays["log_scale"] = np.log(rng.uniform(0.001, 0.015, (c, 3))).astype(np.float32)
+    arrays["log_scale"][:2] = np.log(0.5)
+    arrays["logit_opacity"][2:4] = -6.5
+    alive = np.arange(c) < n
+    denom = rng.randint(0, 4, c).astype(np.float32)
+    stats = dict(grad_accum=(denom * rng.uniform(0.0, 1.0, c)).astype(np.float32), denom=denom,
+                 max_radii2d=rng.uniform(0.0, 105.0, c).astype(np.float32))
+    state = tmodel.GaussianModelState(
+        params=params_from_numpy(arrays, device), alive=torch.as_tensor(alive, device=device),
+        **{k: torch.as_tensor(v, device=device) for k, v in stats.items()},
+    )
+    moments = {m: {k: torch.as_tensor(rng.randn(*a.shape).astype(np.float32), device=device)
+                   for k, a in arrays.items()} for m in ("mu", "nu")}
+    noise = torch.as_tensor(rng.randn(2 * c, 3).astype(np.float32), device=device)
+    return state, SparseAdamState(**moments), noise
+
+
+def test_densify_surgery_on_card_matches_cpu_without_host_sync(cuda):
+    """densify_and_prune, zero_moments_at and reset_opacity on the card equal
+    the same functions on CPU copies, and make no host sync."""
+    out = {}
+    for dev in (torch.device("cpu"), cuda):
+        state, opt, noise = densify_inputs(dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            _, allocated, overflow = tmodel.densify_and_prune(state, noise, 0.5, 0.005, 1.0, 100.0)
+            ttrainer.zero_moments_at(opt, allocated)
+            tmodel.reset_opacity(state)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        out[dev.type] = (state, opt, allocated, overflow)
+    (s_cpu, o_cpu, a_cpu, v_cpu), (s_gpu, o_gpu, a_gpu, v_gpu) = out["cpu"], out["cuda"]
+    assert int(v_gpu) == int(v_cpu) > 0 and int(a_cpu.sum()) > 0
+    assert torch.equal(a_gpu.cpu(), a_cpu) and torch.equal(s_gpu.alive.cpu(), s_cpu.alive)
+    for k in PARAM_NAMES:
+        torch.testing.assert_close(getattr(s_gpu.params, k).detach().cpu(), getattr(s_cpu.params, k).detach(),
+                                   atol=1e-6, rtol=0, msg=lambda m: f"{k}: {m}")
+        for m in ("mu", "nu"):
+            assert torch.equal(getattr(o_gpu, m)[k].cpu(), getattr(o_cpu, m)[k]), (m, k)

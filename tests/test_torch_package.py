@@ -22,15 +22,22 @@ def run_python(code: str, cwd=REPO):
 
 
 def test_every_module_imports_without_jax():
+    """No JAX, no PyYAML and nothing of dogs_tpu, by module name and by file:
+    a module loaded from a dogs_tpu/ file under another name is caught too."""
     proc = run_python(
         "import importlib, pkgutil, sys\n"
-        "import dogs_tpu_torch\n"
+        "from pathlib import Path\n"
+        "import dogs_tpu_torch, chip_smoke\n"
         "names = [m.name for m in pkgutil.walk_packages(dogs_tpu_torch.__path__, 'dogs_tpu_torch.')]\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
-        "assert len(names) >= 20, names\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'dogs_tpu'))\n"
+        "assert len(names) >= 26, names\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'dogs_tpu', 'yaml'))\n"
         "assert not bad, bad\n"
+        f"ref = Path({str(REPO / 'dogs_tpu')!r})\n"
+        "files = {n: Path(getattr(m, '__file__', None) or '/').resolve() for n, m in list(sys.modules.items())}\n"
+        "loaded = sorted(n for n, f in files.items() if f.is_relative_to(ref))\n"
+        "assert not loaded, loaded\n"
         "print(len(names), 'modules')\n"
     )
     assert proc.returncode == 0, proc.stderr
