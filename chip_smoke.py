@@ -46,7 +46,12 @@ reset, capacity growth and checkpoints), in phases:
   6c. densify bench.py --densify's run at full width: 500k points, GT from a
               second bench scene at SH 0, 150 steps with a densify event
               every 25 (K1, K2, K3 once a step; loss falls; n_alive changes;
-              every overflow logged; no NaN in alive slots); densify_and_prune
+              every overflow logged; no NaN in alive slots); at the inputs of
+              the first step after the first event (its camera, the model with
+              pruned slots, SH 0) and after the run, outside the counted
+              launches: each kernel against its plain version at phases 3 and
+              5's tolerances (segment sum bit for bit) and the step's
+              gradients kernels vs plain; densify_and_prune
               + zero_moments_at under torch.cuda.set_sync_debug_mode("error");
               ms/step, ms per event and per grow_capacity from CUDA events,
               n_alive and capacity at each log, peak memory; then, past the
@@ -196,8 +201,8 @@ def main() -> int:
     cfg = RasterConfig()
     plain_cfg = RasterConfig(use_kernel=False)
 
-    def frame_inputs(params, cam, sh_degree, mt=cfg.max_tiles_per_gaussian):
-        proj = project_gaussians(params, cam, active_sh_degree=sh_degree)
+    def frame_inputs(params, cam, sh_degree, mt=cfg.max_tiles_per_gaussian, alive=None):
+        proj = project_gaussians(params, cam, alive=alive, active_sh_degree=sh_degree)
         bins = build_tile_bins(proj, cam.height, cam.width, max_tiles_per_gaussian=mt)
         nty, ntx = -(-cam.height // blend.TILE), -(-cam.width // blend.TILE)
         return (entry_matrix(proj), bins.sorted_idx, bins.tile_starts, nty, ntx, cam.width, cam.height), bins
@@ -378,9 +383,9 @@ def main() -> int:
     bench_rng = np.random.RandomState(1)  # bench.py's GT draw
     bench_gts = [torch.as_tensor(bench_rng.rand(*frame).astype(np.float32), device=dev) for _ in cams]
 
-    def step_grads(p, cam, gt, rcfg):
-        offset = torch.zeros((n, 2), device=dev, requires_grad=True)
-        out = render_tiled(p, cam, rcfg, means2d_offset=offset)
+    def step_grads(p, cam, gt, rcfg, alive=None, deg=3):
+        offset = torch.zeros((p.capacity, 2), device=dev, requires_grad=True)
+        out = render_tiled(p, cam, rcfg, alive=alive, active_sh_degree=deg, means2d_offset=offset)
         img = torch.clamp(out.image, 0.0, 1.0)
         loss = 0.8 * torch.mean(torch.abs(img - gt)) + 0.2 * (1.0 - ssim(img, gt))
         return torch.autograd.grad(loss, [getattr(p, k) for k in PARAM_NAMES] + [offset])
@@ -646,7 +651,55 @@ def main() -> int:
     events: list[dict] = []
     events_grow: list[tuple] = []
     step_log: list[tuple[int, float, torch.Tensor]] = []
+    peaks_before_parity: list[int] = []
     surgery = (trainer_mod.densify_and_prune, trainer_mod.zero_moments_at, trainer_mod.grow_capacity)
+
+    def path_parity(label, model, cam, gt, deg):
+        """One train step's inputs on this path (its model, with the dead
+        slots of pruning, at SH `deg`): each kernel against its plain version
+        at the tolerances of phases 3 and 5, and the step's gradients,
+        kernels against plain. The launches made here do not count: the
+        counts are restored. Neither does its memory: returns the peak
+        before it, and resets the peak after it."""
+        saved = {fn: fn.launches for fn in counted}
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev)
+        p, alive = model.params, model.alive
+        with torch.no_grad():
+            args, bins = frame_inputs(p, cam, deg, mt=BENCH_MT, alive=alive)
+            ent_n, idx, starts, *grid = args
+            got, want = blend.blend_forward(*args), blend.blend_forward_reference(*args)
+            errs = [mostly_close(got[:, rows], want[:, rows], tol, name=f"{label} forward {what}")
+                    for rows, tol, what in ((slice(0, 3), 3e-3, "rgb"), (3, 5e-3, "alpha"), (4, 3e-3, "invdepth"))]
+            max_err["fwd"] = max(max_err["fwd"], *errs)
+            cot = random_cot(args, seed=13)
+            d1 = blend.blend_backward(ent_n, idx, starts, cot, *grid, depth_threshold=kcfg.depth_threshold)
+            dref = blend.blend_backward_reference(ent_n, idx, starts, cot, *grid,
+                                                  depth_threshold=kcfg.depth_threshold)
+            check(bool(torch.isfinite(d1).all()) and not d1[:, 10:].any(),
+                  f"{label}: backward output non-finite or columns 10-15 written")
+            err = max(mostly_close(d1[:, c], dref[:, c], GRAD_ATOL, name=f"{label} backward column {c}")
+                      for c in range(blend.N_GRADS))
+            max_err["bwd"] = max(max_err["bwd"], err)
+            src, runs = reduce.gaussian_runs(bins.order, idx, p.capacity)
+            for dt in reduce.REDUCE_DTYPES:
+                check_segment_sum(f"{label} {dt}", d1, src, runs, p.capacity, dt)
+        g_kernel = step_grads(p, cam, gt, kcfg, alive, deg)
+        g_plain = step_grads(p, cam, gt, kplain, alive, deg)
+        worst = {}
+        for name, gk, gp in zip(PARAM_NAMES + ("means2d_offset",), g_kernel, g_plain):
+            check(bool(torch.isfinite(gk).all()), f"{label}: non-finite kernel gradient {name}")
+            mostly_close(gk, gp, GRAD_ATOL, name=f"{label} grad {name}")
+            worst[name] = float(((gk - gp).abs() / (gp.abs().max() + 1e-12)).max())
+        print(f"[densify] {label}: capacity {p.capacity:,}, n_alive {int(model.num_alive):,}, SH {deg}, "
+              f"K={idx.shape[0]:,}: forward max|d| {max(errs):.3e}, backward max|d| {err:.3e}, segment sum "
+              f"bit for bit; step gradients kernels vs plain, worst scaled |d| per leaf "
+              + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()))
+        for fn, c in saved.items():
+            fn.launches = c
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        return peak
 
     def event_mark():
         e = torch.cuda.Event(enable_timing=True)
@@ -680,6 +733,10 @@ def main() -> int:
     step_iteration = dloop.train_iteration
 
     def timed_iteration(step):
+        if step == DENSIFY_EVERY + 1:  # the first step after the first event
+            i = dloop._order[-1] if dloop._order else 0  # the camera this step takes
+            peaks_before_parity.append(path_parity(f"step {step} inputs", dloop.state.model, cams[i],
+                                                   dense_gts[i], dloop.active_sh_degree(step)))
         torch.cuda.synchronize()
         t = time.perf_counter()
         m = step_iteration(step)
@@ -701,8 +758,10 @@ def main() -> int:
         dloop.train(num_iterations=DENSIFY_STEPS, log_every=DENSIFY_EVERY)
         torch.cuda.synchronize()
         dense_counts = add_counts("densify loop", list(counted))
-        dense_peak_mb = torch.cuda.max_memory_allocated(dev) / 2**20
+        dense_peak_mb = max([torch.cuda.max_memory_allocated(dev)] + peaks_before_parity) / 2**20
         n_events = len(events)
+        path_parity("after the run", dloop.state.model, cams[0], dense_gts[0],
+                    dloop.active_sh_degree(dloop.state.step + 1))
         # After the counted run, at the next capacity bucket whether or not
         # the run grew: grow_capacity, one densify event and one step.
         torch.cuda.reset_peak_memory_stats(dev)

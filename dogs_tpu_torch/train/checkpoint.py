@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import json
 import os
-import time
+import zipfile
 
 import numpy as np
 import torch
@@ -103,63 +103,77 @@ def load_jax_checkpoint(path: str, device: torch.device | str = "cuda") -> Gauss
     )
 
 
+def _train_state(data, path: str, device) -> TrainState:
+    """The port's TrainState from the leaves of a trainer checkpoint (an
+    open npz or a dict of its arrays)."""
+    missing = [
+        key for key in (".model/.params/.xyz", ".opt/.mu/.xyz", ".opt/.nu/.xyz", ".step")
+        if key not in data
+    ]
+    if missing:
+        raise KeyError(f"checkpoint {path} is not a trainer checkpoint: no {missing}")
+    opt = SparseAdamState(
+        **{
+            m: {
+                k: torch.as_tensor(data[f".opt/.{m}/.{k}"].astype(np.float32), device=device)
+                for k in PARAM_NAMES
+            }
+            for m in ("mu", "nu")
+        }
+    )
+    n_images = data[".exposure"].shape[0] if ".exposure" in data else 1
+    return TrainState(
+        model=_model_state(data, ".model/", device), opt=opt, step=int(data[".step"]),
+        n_images=n_images,
+    )
+
+
 def load_jax_train_state(path: str, device: torch.device | str = "cuda") -> TrainState:
     """Load a `dogs_tpu` trainer checkpoint (a saved `TrainState`) as the
     port's `TrainState`: the model, the sparse-Adam moments and the step.
     The JAX state's per-image fields (exposure, appearance mask, pose deltas)
     belong to loss terms the port does not have yet and are not read."""
     with _open(path) as data:
-        missing = [
-            key for key in (".model/.params/.xyz", ".opt/.mu/.xyz", ".opt/.nu/.xyz", ".step")
-            if key not in data
-        ]
-        if missing:
-            raise KeyError(f"checkpoint {path} is not a trainer checkpoint: no {missing}")
-        opt = SparseAdamState(
-            **{
-                m: {
-                    k: torch.as_tensor(data[f".opt/.{m}/.{k}"].astype(np.float32), device=device)
-                    for k in PARAM_NAMES
-                }
-                for m in ("mu", "nu")
-            }
-        )
-        n_images = data[".exposure"].shape[0] if ".exposure" in data else 1
-        return TrainState(
-            model=_model_state(data, ".model/", device), opt=opt, step=int(data[".step"]),
-            n_images=n_images,
-        )
+        return _train_state(data, path, device)
+
+
+def leaf_shape(path: str, key: str) -> tuple[int, ...]:
+    """The shape of leaf `key` of an npz checkpoint, from its .npy header:
+    no array data is decompressed."""
+    with zipfile.ZipFile(path) as zf, zf.open(f"{key}.npy") as f:
+        major, _ = np.lib.format.read_magic(f)
+        read = np.lib.format.read_array_header_1_0 if major == 1 else np.lib.format.read_array_header_2_0
+        return tuple(read(f)[0])
 
 
 def load_train_state(path: str, template: TrainState) -> tuple[TrainState, dict]:
     """Load a trainer checkpoint of either package into the structure of
     `template`, as dogs_tpu's `load_pytree`: every leaf of the template must
     be there with the template's shape (grow or shrink the template's
-    capacity first). Returns (state on the template's device, extra)."""
+    capacity first). Each leaf is read once. Returns (state on the
+    template's device, extra)."""
     with _open(path) as data:
-        for key, leaf in _leaves(template).items():
-            if key not in data:
-                raise KeyError(f"checkpoint missing leaf {key}")
-            if tuple(data[key].shape) != tuple(leaf.shape):
-                raise ValueError(
-                    f"checkpoint leaf {key} has shape {data[key].shape}, template expects "
-                    f"{tuple(leaf.shape)}; resize the template (capacity grow/shrink) before loading"
-                )
-        extra = _meta(data).get("extra", {})
-    return load_jax_train_state(path, template.model.params.xyz.device), extra
+        arrays = {key: data[key] for key in data.files}
+    for key, leaf in _leaves(template).items():
+        if key not in arrays:
+            raise KeyError(f"checkpoint missing leaf {key}")
+        if tuple(arrays[key].shape) != tuple(leaf.shape):
+            raise ValueError(
+                f"checkpoint leaf {key} has shape {arrays[key].shape}, template expects "
+                f"{tuple(leaf.shape)}; resize the template (capacity grow/shrink) before loading"
+            )
+    state = _train_state(arrays, path, template.model.params.xyz.device)
+    return state, _meta(arrays).get("extra", {})
 
 
 class CheckpointManager:
     """The port of dogs_tpu's CheckpointManager (the reference
     CheckPointManager): <dir>/model_{step:06d}.npz, a model.npz copy of the
-    latest, a checkpoints.txt index, and `max_to_keep` retention (plus one
-    keeper every `keep_every_n_hours`)."""
+    latest, a checkpoints.txt index, and `max_to_keep` retention."""
 
-    def __init__(self, directory: str, max_to_keep: int = 3, keep_every_n_hours: float | None = None):
+    def __init__(self, directory: str, max_to_keep: int = 3):
         self.directory = directory
         self.max_to_keep = max_to_keep
-        self.keep_every_n_hours = keep_every_n_hours
-        self._kept_at = 0.0
         os.makedirs(directory, exist_ok=True)
 
     @property
@@ -189,16 +203,8 @@ class CheckpointManager:
         os.replace(tmp, latest)
 
         names = [n for n in self._index() if n != name] + [name]
-        now = time.time()
-        protect = set()
-        if self.keep_every_n_hours and now - self._kept_at > self.keep_every_n_hours * 3600:
-            protect.add(name)
-            self._kept_at = now
-        while len(names) > self.max_to_keep:
-            victim = next((n for n in names if n not in protect), None)
-            if victim is None or victim == names[-1]:
-                break
-            names.remove(victim)
+        while len(names) > max(self.max_to_keep, 1):
+            victim = names.pop(0)
             victim_path = os.path.join(self.directory, victim)
             if os.path.exists(victim_path):
                 os.remove(victim_path)

@@ -30,7 +30,7 @@ from dogs_tpu_torch.fields import model as tmodel
 from dogs_tpu_torch.train import schedule as tschedule
 from dogs_tpu_torch.train import trainer as ttrainer
 from dogs_tpu_torch.train.__main__ import main as cli_main
-from dogs_tpu_torch.train.checkpoint import CheckpointManager, train_state_arrays
+from dogs_tpu_torch.train.checkpoint import CheckpointManager, save_train_state, train_state_arrays
 from dogs_tpu_torch.train.optim import SparseAdamState
 from dogs_tpu_torch.utils import config as tconfig
 from tests.test_torch_core import jax_params
@@ -299,12 +299,12 @@ def test_config_from_dicts_needs_no_yaml(monkeypatch):
 
 
 def tiny_trainers(j_min_capacity, t_min_capacity, n_cams=4):
-    """A JAX and a port trainer on the same 40 points and 4 ring cameras
-    (blank images: nothing is trained)."""
+    """A JAX (None for j_min_capacity None) and a port trainer on the same
+    40 points and 4 ring cameras (blank images: nothing is trained)."""
     rng = np.random.RandomState(2)
     pts, cols = rng.randn(40, 3).astype(np.float32), rng.rand(40, 3).astype(np.float32)
     imgs = [np.zeros((32, 32, 3), np.float32)] * n_cams
-    jt = jtrainer.GaussianSplatTrainer(
+    jt = None if j_min_capacity is None else jtrainer.GaussianSplatTrainer(
         j_ring_cameras(n_cams, 4.0, 32, 32, 28.8), imgs, pts, cols,
         jtrainer.TrainerConfig(min_capacity=j_min_capacity, max_sh_degree=1), seed=5,
     )
@@ -443,6 +443,30 @@ def test_resume_continues_bit_for_bit(tmp_path, caplog, reactive):
         {k: v for k, v in m.items() if k not in drop} for m in whole.metrics_history[7:]]
     assert resumed._order == whole._order
     assert torch.equal(resumed.noise_gen.get_state(), whole.noise_gen.get_state())
+
+
+def test_resume_from_another_device_type_reseeds_the_split_noise(tmp_path, caplog):
+    """A checkpoint whose split-noise state is a CUDA generator's (16 bytes of
+    Philox state, with or without its device type) resumes on the CPU: the
+    generator is reseeded from the seed and the step, and that is logged. A
+    CPU generator's state is restored as it was saved."""
+    _, tt = tiny_trainers(None, 64)
+    tt.state.step = 7
+    expect = torch.Generator().manual_seed(ttrainer.split_noise_seed(5, 7)).get_state()
+    caplog.set_level("INFO")
+    for i, device_key in enumerate(({"noise_rng_device": "cuda"}, {})):
+        path = str(tmp_path / f"cuda_noise_{i}.npz")
+        save_train_state(path, tt.state, {"noise_rng": list(range(16)), **device_key})
+        _, resumed = tiny_trainers(None, 64)
+        assert resumed.load_checkpoint(CheckpointManager(str(tmp_path / "m")), path) == 7
+        assert torch.equal(resumed.noise_gen.get_state(), expect)
+    assert caplog.text.count("split noise reseeded at step 7") == 2
+    tt.noise_gen.manual_seed(123)
+    tt._split_noise(64)
+    tt.save_checkpoint(CheckpointManager(str(tmp_path / "cpu")))
+    _, resumed = tiny_trainers(None, 64)
+    assert resumed.load_checkpoint(CheckpointManager(str(tmp_path / "cpu"))) == 7
+    assert torch.equal(resumed.noise_gen.get_state(), tt.noise_gen.get_state())
 
 
 @pytest.mark.parametrize("field", ["coarse_to_fine", "profile_num_steps"])

@@ -357,6 +357,40 @@ def test_trainer_densifies_and_resets_like_jax(trained):
         assert not np_(getattr(tt.state.model, k)).any() and not np.asarray(getattr(jt.state.model, k)).any()
 
 
+def test_reactive_capacity_growth_matches_jax(scenes, caplog):
+    """dogs_tpu's capacity protocol (reactive_capacity_growth=True) on both
+    trainers. Every alive Gaussian splits at each event (threshold 0,
+    percent_dense 0), so the event at step 5 drops candidates in the full
+    capacity and logs the overflow, and the one at step 10 grows a bucket
+    first. The logged drops and growth, n_alive at every step, the capacity
+    and the final alive mask are equal."""
+    js, ts = scenes
+    cfg = trainer_cfg(densify_start_iter=2, densification_interval=5, densify_grad_threshold=0.0,
+                      percent_dense=0.0, sh_increase_interval=1000, reactive_capacity_growth=True)
+    jt = jtrainer.GaussianSplatTrainer(js.cameras[:8], js.images[:8], js.points, js.colors,
+                                       jtrainer.TrainerConfig(**cfg), J_RASTER, seed=42)
+    tt = ttrainer.GaussianSplatTrainer(ts.cameras[:8], ts.images[:8], ts.points, ts.colors,
+                                       ttrainer.TrainerConfig(**cfg), T_RASTER, seed=42, device="cpu")
+    tt._split_noise = jax_split_noise(42)
+    caplog.set_level("INFO")
+    for trainer in (jt, tt):
+        trainer.train(num_iterations=10, log_every=1)
+
+    def capacity_log(module):
+        return [r.getMessage() for r in caplog.records if r.name == module.__name__
+                and ("densify overflow" in r.getMessage() or "capacity growth" in r.getMessage())]
+
+    logged = capacity_log(ttrainer)
+    assert logged == capacity_log(jtrainer), logged
+    assert len(logged) == 2 and logged[0].startswith("densify overflow: ") and logged[1].startswith(
+        "reactive capacity growth 128 -> ")
+    alive = [int(m["n_alive"]) for m in tt.metrics_history]
+    assert alive == [int(m["n_alive"]) for m in jt.metrics_history]
+    assert alive[5] > alive[4]  # the event at step 5 split into the free slots
+    assert tt.state.model.capacity == jt.state.model.capacity > 128
+    np.testing.assert_array_equal(np_(tt.state.model.alive), np.asarray(jt.state.model.alive))
+
+
 @pytest.mark.parametrize("event", ["prune"])
 def test_trainer_raises_at_first_host_event(scenes, event):
     """The LightGaussian prune is the one host event not ported: the
