@@ -3,14 +3,16 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths on bench.py's model (500k Gaussians, SH degree
+Drives the port's paths on bench.py's model (500k Gaussians, SH degree
 3, 1152x864, 8 cameras, random weights from a seed): serving
 (GaussianSplatEvaluator.render / eval -> render_tiled -> projection, tile
-binning, the blend forward kernel, PSNR/SSIM) and training (make_train_step
-and GaussianSplatTrainer -> render_tiled forward, L1 + D-SSIM loss, the
-blend backward kernel, the K->N index prep and the segment-sum kernel, the
-projection VJP, sparse Adam, and the host loop's densify events, opacity
-reset, capacity growth and checkpoints), in phases:
+binning, the blend forward kernel, PSNR/SSIM/LPIPS), training
+(make_train_step and GaussianSplatTrainer -> render_tiled forward, L1 +
+D-SSIM loss, the blend backward kernel, the K->N index prep and the
+segment-sum kernel, the projection VJP, sparse Adam, and the host loop's
+densify events, opacity reset, capacity growth and checkpoints), the
+LightGaussian importance prune (one VJP through all three kernels per
+camera), export, and the train and eval CLIs, in phases:
 
   1. device   require CUDA; print the card's name and power limit
   2. build    compile the three kernels from dogs_tpu_torch/csrc with nvcc,
@@ -56,7 +58,24 @@ reset, capacity growth and checkpoints), in phases:
               ms/step, ms per event and per grow_capacity from CUDA events,
               n_alive and capacity at each log, peak memory; then, past the
               counted run, grow_capacity, an event and a step at the next
-              capacity bucket, and one event under torch.profiler
+              capacity bucket, and one event under torch.profiler; trainer
+              init (the windowed Morton KNN) timed
+  6d. lightgaussian  prune_list over the 8 bench cameras (K1, K2, K3 once
+              a camera), calculate_v_imp_score and prune_gaussians at
+              urban3d's prune_percent 0.25 on the bench model: n_alive
+              falls by at least k; camera 0's importance, kernels against
+              plain (99.9% within 2e-3 of the max, none past 0.05) outside
+              the counts; ms per camera and per prune, peak memory; then the
+              pruned model evaluated on the 8 cameras against the unpruned
+              model's renders (PSNR, LPIPS; K1 once a camera) and exported
+              (timed; .splat 32 bytes a Gaussian, the .ply read back)
+  6e. CLIs    python -m dogs_tpu_torch.train on synthetic_smoke.yaml for 20
+              steps with checkpoints, again with trainer.resume=true
+              ("nothing to do"), then python -m dogs_tpu_torch.eval: its
+              metrics.json (psnr, ssim, lpips_uncalibrated; val PSNR within
+              0.01 dB of the train CLI's final validate()), PNG renders of
+              the camera's size, .splat of 32 x n_alive bytes, the .ply read
+              back, n_test_poses trajectory frames
   7. report   per-kernel JSON line (time, plain time, bound, share, library
               call time), then the device JSON line (last line)
 
@@ -69,6 +88,8 @@ from __future__ import annotations
 
 import json
 import logging
+import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -96,6 +117,9 @@ TRAIN_STEPS = 30
 BENCH_MT = 12  # max_tiles_per_gaussian as bench.py trains the bench model
 DENSIFY_STEPS, DENSIFY_EVERY = 150, 25  # bench.py --densify's run: 6 densify events
 RESUME_TOL = 1e-5  # resumed against uninterrupted parameters, of each leaf's max
+PRUNE_PERCENT = 0.25  # urban3d.yaml's prune.prune_percent
+CLI_CONFIG = "config/gaussian_splatting/synthetic_smoke.yaml"
+CLI_STEPS, CLI_POSES = 20, 4
 
 
 class SmokeFailure(RuntimeError):
@@ -149,6 +173,8 @@ def main() -> int:
     from dogs_tpu_torch.core.gaussians import PARAM_NAMES
     from dogs_tpu_torch.data import synthetic
     from dogs_tpu_torch.eval.evaluator import EvalConfig, GaussianSplatEvaluator
+    from dogs_tpu_torch.fields import lightgaussian
+    from dogs_tpu_torch.fields.io import load_gaussian_ply
     from dogs_tpu_torch.fields.model import GaussianModelState
     from dogs_tpu_torch.raster import blend, reduce
     from dogs_tpu_torch.raster.binning import build_tile_bins
@@ -157,6 +183,7 @@ def main() -> int:
     from dogs_tpu_torch.raster.tiled import RasterConfig, entry_matrix, render_tiled
     from dogs_tpu_torch.train import trainer as trainer_mod
     from dogs_tpu_torch.train.checkpoint import CheckpointManager
+    from dogs_tpu_torch.utils import png
 
     dev = torch.device("cuda", 0)
     # Full-f32 references: matmuls and convolutions without TF32.
@@ -645,7 +672,7 @@ def main() -> int:
     )
     torch.cuda.synchronize()
     init_s, init_peak_mb = time.perf_counter() - t0, torch.cuda.max_memory_allocated(dev) / 2**20
-    print(f"[densify] ({smi}) trainer from {n:,} points (exact KNN scales): {init_s:.2f} s, "
+    print(f"[densify] ({smi}) trainer from {n:,} points (windowed Morton KNN scales): {init_s:.2f} s, "
           f"peak memory {init_peak_mb:.0f} MiB; capacity {dloop.state.model.capacity:,}")
 
     events: list[dict] = []
@@ -838,6 +865,137 @@ def main() -> int:
           f"{profiled[1]:.3f} ms busy in a {profiled[2]:.3f} ms span; largest: "
           + "; ".join(f"{name[:60]} {ms:.3f} ms" for name, ms in top_ops))
     del dloop, dense_gts, model
+
+    # ---- 6d. lightgaussian (main path 5): the importance prune at full width
+    # The bench model with every slot alive; urban3d's prune_percent. Camera
+    # 0's importance is held against the plain path first, outside the
+    # counts and the peak.
+    def bench_model():
+        return GaussianModelState(params, torch.ones(n, dtype=torch.bool, device=dev),
+                                  *(torch.zeros(n, device=dev) for _ in range(3)))
+
+    saved = {fn: fn.launches for fn in counted}
+    imp_kernel = lightgaussian.importance_render(bench_model(), cams[0], cfg)
+    imp_plain = lightgaussian.importance_render(bench_model(), cams[0], plain_cfg)
+    torch.cuda.synchronize()
+    for fn, c in saved.items():
+        fn.launches = c
+    check(bool(torch.isfinite(imp_kernel).all()), "lightgaussian: non-finite kernel importance")
+    mostly_close(imp_kernel, imp_plain, GRAD_ATOL, name="importance cam 0")
+    print(f"[lightgaussian] ({smi}) camera 0 importance, kernels vs plain: max {float(imp_plain.max()):.4e}, "
+          f"max|d| {float((imp_kernel - imp_plain).abs().max()):.3e}, share within {GRAD_ATOL} of the max "
+          f"{float(((imp_kernel - imp_plain).abs() <= GRAD_ATOL * imp_plain.abs().max()).float().mean()):.6f}, "
+          f"{int((imp_plain > 0).sum()):,} Gaussians with importance")
+    del imp_kernel, imp_plain
+
+    lg_model = bench_model()
+    render_importance = lightgaussian.importance_render
+    per_cam: list[tuple] = []
+
+    def timed_importance(*a, **kw):
+        e0 = event_mark()
+        out = render_importance(*a, **kw)
+        per_cam.append((e0, event_mark()))
+        return out
+
+    lightgaussian.importance_render = timed_importance
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    try:
+        t0 = time.perf_counter()
+        imp = lightgaussian.prune_list(lg_model, cams, cfg)
+        scores = lightgaussian.calculate_v_imp_score(lg_model, imp, 0.1)
+        lightgaussian.prune_gaussians(lg_model, PRUNE_PERCENT, scores)
+        torch.cuda.synchronize()
+        prune_s = time.perf_counter() - t0
+    finally:
+        lightgaussian.importance_render = render_importance
+    lg_counts = add_counts("lightgaussian", list(counted))
+    for name, launches in lg_counts.items():
+        check(launches == len(cams), f"lightgaussian: {name} launched {launches} times, expected one per camera")
+    lg_peak_mb = torch.cuda.max_memory_allocated(dev) / 2**20
+    n_pruned_alive, n_seen = int(lg_model.num_alive), int((imp > 0).sum())
+    k_prune = int(np.float32(PRUNE_PERCENT) * (np.float32(n) - np.float32(1.0)))
+    check(bool(torch.isfinite(imp).all()) and bool(torch.isfinite(scores).all()), "lightgaussian: non-finite scores")
+    check(n - n_pruned_alive >= k_prune,
+          f"lightgaussian: n_alive {n:,} -> {n_pruned_alive:,}, fewer than k = {k_prune:,} pruned")
+    cam_ms = [e0.elapsed_time(e1) for e0, e1 in per_cam]
+    print(f"[lightgaussian] ({smi}) prune_list over {len(cams)} cameras + calculate_v_imp_score + "
+          f"prune_gaussians at {PRUNE_PERCENT}: n_alive {n:,} -> {n_pruned_alive:,} (k = {k_prune:,}; "
+          f"{n_seen:,} Gaussians with importance > 0 in some camera); "
+          f"importance_render ms per camera median {np.median(cam_ms):.3f} (min {min(cam_ms):.3f}, max "
+          f"{max(cam_ms):.3f}); whole prune {prune_s * 1e3:.1f} ms; peak memory {lg_peak_mb:.0f} MiB")
+    del imp, scores
+
+    with tempfile.TemporaryDirectory() as tmp:
+        pruned_eval = GaussianSplatEvaluator(lg_model, cfg, EvalConfig(output_dir=tmp, save_images=False))
+        reset_counts()
+        pruned_metrics = pruned_eval.eval(cams, gts, split="val")
+        pe_counts = add_counts("pruned eval", [blend.blend_forward])
+        check(pe_counts["blend_forward"] == len(cams), f"pruned eval: {pe_counts['blend_forward']} K1 launches")
+        t0 = time.perf_counter()
+        pruned_eval.export(os.path.join(tmp, "export"))
+        export_s = time.perf_counter() - t0
+        splat_bytes = os.path.getsize(os.path.join(tmp, "export", "model.splat"))
+        ply_rows = load_gaussian_ply(os.path.join(tmp, "export", "model.ply"), dev).capacity
+        ply_mb = os.path.getsize(os.path.join(tmp, "export", "model.ply")) / 2**20
+    pm = pruned_metrics["mean"]
+    check(np.isfinite(pm["psnr"]) and np.isfinite(pm["lpips_uncalibrated"]), f"pruned eval: non-finite {pm}")
+    check(splat_bytes == 32 * n_pruned_alive, f"export: .splat {splat_bytes} bytes for {n_pruned_alive} Gaussians")
+    check(ply_rows == n_pruned_alive, f"export: the .ply reads back {ply_rows} rows, not {n_pruned_alive}")
+    print(f"[lightgaussian] ({smi}) pruned model against the unpruned model's renders on the {len(cams)} cameras: "
+          f"psnr {pm['psnr']:.3f} dB, ssim {pm['ssim']:.5f}, lpips_uncalibrated {pm['lpips_uncalibrated']:.5f}; "
+          f"export of {n_pruned_alive:,} Gaussians (.splat {splat_bytes:,} B, .ply {ply_mb:.1f} MiB, points .ply) "
+          f"{export_s:.2f} s")
+    del lg_model, pruned_eval
+
+    # ---- 6e. the train and eval CLIs, each in its own process ---------------
+    root = os.path.dirname(os.path.abspath(__file__))
+
+    def run_cli(module: str, *args: str) -> tuple[str, float]:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", module, "--config", CLI_CONFIG, *args], cwd=root,
+                              capture_output=True, text=True, timeout=600)
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            print(proc.stdout[-4000:] + proc.stderr[-4000:], file=sys.stderr)
+        check(proc.returncode == 0, f"python -m {module} {' '.join(args)} exited {proc.returncode}")
+        return proc.stdout + proc.stderr, seconds
+
+    with tempfile.TemporaryDirectory() as tmp:
+        common = [f"root_dir={tmp}", f"trainer.max_iterations={CLI_STEPS}", "trainer.n_tensorboard=10",
+                  "trainer.n_validation=10", "trainer.n_checkpoint=10"]
+        log, train_s = run_cli("dogs_tpu_torch.train", *common)
+        final = re.search(r"final val: \{'val_psnr': ([-+0-9.eE]+)\}", log)
+        check(final is not None, "train CLI: no final validation logged")
+        train_val = float(final.group(1))
+        log, resume_s = run_cli("dogs_tpu_torch.train", *common, "trainer.resume=true")
+        check(f"resumed from step {CLI_STEPS}" in log and "nothing to do" in log,
+              "train CLI resume: did not resume to 'nothing to do'")
+        log, eval_s = run_cli("dogs_tpu_torch.eval", *common, f"eval.n_test_poses={CLI_POSES}")
+        run = os.path.join(tmp, "gs_novel_view_synthesis_synthetic_toy")
+        with open(os.path.join(run, "eval", "val", "metrics.json")) as f:
+            cli_mean = json.load(f)["mean"]
+        check({"psnr", "ssim", "lpips_uncalibrated"} <= set(cli_mean), f"eval CLI metrics.json: {sorted(cli_mean)}")
+        check(abs(cli_mean["psnr"] - train_val) <= 0.01,
+              f"eval CLI val PSNR {cli_mean['psnr']} vs the train CLI's final validate() {train_val}")
+        frames = sorted(f for f in os.listdir(os.path.join(run, "eval", "test")) if f.endswith(".png"))
+        check(len(frames) == CLI_POSES, f"eval CLI: {len(frames)} trajectory frames, expected {CLI_POSES}")
+        pngs = [os.path.join(run, "eval", "val", f) for f in ("00000.png", "00000_gt.png")]
+        pngs += [os.path.join(run, "eval", "test", f) for f in frames]
+        for path in pngs:
+            check(png.png_size(path) == (96, 80), f"{path}: not a 96x80 PNG")  # synthetic_smoke's camera
+        n_alive_cli = cli_mean["num_points"]
+        splat_cli = os.path.getsize(os.path.join(run, "export", "model.splat"))
+        check(splat_cli == 32 * n_alive_cli, f"eval CLI: .splat {splat_cli} bytes for {n_alive_cli} Gaussians")
+        check(load_gaussian_ply(os.path.join(run, "export", "model.ply"), dev).capacity == n_alive_cli,
+              "eval CLI: the .ply does not read back n_alive rows")
+        gif = os.path.exists(os.path.join(run, "eval", "test", "trajectory.gif"))
+    print(f"[cli] ({smi}) train CLI {CLI_STEPS} steps {train_s:.1f} s (final val psnr {train_val:.4f}), resume "
+          f"{resume_s:.1f} s (nothing to do), eval CLI {eval_s:.1f} s: val psnr {cli_mean['psnr']:.4f} ssim "
+          f"{cli_mean['ssim']:.5f} lpips_uncalibrated {cli_mean['lpips_uncalibrated']:.5f}, {n_alive_cli} "
+          f"Gaussians exported, {len(frames)} trajectory frames, GIF {'written' if gif else 'skipped (no imageio)'}")
 
     # ---- 7. report ---------------------------------------------------------
     sources = {

@@ -1,8 +1,11 @@
-"""Evaluator: render a split, compute PSNR/SSIM, write metrics.json.
+"""Evaluator: render a split, score it, export the model, render a trajectory.
 
-Port of the render/eval part of dogs_tpu/eval/evaluator.py. Renders stay
-on the model's device as tensors, and the metrics run there too. LPIPS,
-model export and the test trajectory are not ported yet (ROADMAP.md).
+Port of dogs_tpu/eval/evaluator.py's GaussianSplatEvaluator: PSNR, SSIM and
+LPIPS per image with the render time and peak device memory, written to
+metrics.json with the renders as PNGs (utils/png.py: no imageio needed);
+.splat / .ply / COLMAP point-cloud export (fields/io.py); the spheric test
+trajectory as PNG frames, plus a GIF where imageio is installed. Renders
+stay on the model's device as tensors, and the metrics run there too.
 """
 
 from __future__ import annotations
@@ -17,10 +20,13 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from dogs_tpu_torch.core.camera import Camera
-from dogs_tpu_torch.eval.metrics import color_correct, psnr, ssim
+from dogs_tpu_torch.core.camera import Camera, make_camera
+from dogs_tpu_torch.data.dataset import spheric_test_poses
+from dogs_tpu_torch.eval.metrics import color_correct, lpips, psnr, ssim
+from dogs_tpu_torch.fields.io import save_colmap_ply, save_gaussian_ply, save_splat
 from dogs_tpu_torch.fields.model import GaussianModelState
 from dogs_tpu_torch.raster.tiled import RasterConfig, render_tiled
+from dogs_tpu_torch.utils.png import write_png
 
 logger = logging.getLogger(__name__)
 
@@ -31,7 +37,8 @@ class EvalConfig:
     save_images: bool = True
     # None: color-correct the val split, not test (as dogs_tpu does).
     apply_color_correction: bool | None = None
-    compute_lpips: bool = False  # LPIPS is not ported yet: True raises
+    compute_lpips: bool = True
+    export_models: bool = True
     background: tuple = (0.0, 0.0, 0.0)
     active_sh_degree: int = 3
 
@@ -50,11 +57,6 @@ class GaussianSplatEvaluator:
         raster_cfg: RasterConfig = RasterConfig(),
         cfg: EvalConfig = EvalConfig(),
     ):
-        if cfg.compute_lpips:
-            raise NotImplementedError(
-                "LPIPS is not ported to dogs_tpu_torch yet (ROADMAP.md queue 1, "
-                "item 10); set EvalConfig.compute_lpips=False"
-            )
         self.model = model
         self.raster_cfg = raster_cfg
         self.cfg = cfg
@@ -83,7 +85,8 @@ class GaussianSplatEvaluator:
     ) -> dict:
         """Renders the split and writes <output_dir>/<split>/metrics.json
         with per-image and mean psnr, ssim, render_time (seconds, synchronized
-        on the card) and, on CUDA, peak device memory in MB."""
+        on the card), on CUDA peak device memory in MB, and `lpips` (or
+        `lpips_uncalibrated` with the fallback filters)."""
         out_dir = os.path.join(self.cfg.output_dir, split)
         os.makedirs(out_dir, exist_ok=True)
         cc = self.cfg.apply_color_correction
@@ -110,6 +113,9 @@ class GaussianSplatEvaluator:
             }
             if on_cuda:
                 entry["memory"] = round(torch.cuda.max_memory_allocated(self.device) / 2**20, 1)
+            if self.cfg.compute_lpips:
+                val, calibrated = lpips(pred, gt)
+                entry["lpips" if calibrated else "lpips_uncalibrated"] = float(val)
             per_image.append(entry)
             if self.cfg.save_images:
                 self._save_image(os.path.join(out_dir, f"{i:05d}.png"), pred)
@@ -126,9 +132,53 @@ class GaussianSplatEvaluator:
         logger.info("[%s] %s", split, means)
         return result
 
+    def eval_test_trajectory(
+        self,
+        reference_camera: Camera,
+        n_poses: int = 60,
+        radius: float = 3.0,
+        split: str = "test",
+        fps: int = 15,
+    ) -> str | None:
+        """Render the spheric test trajectory (`spheric_test_poses`) with the
+        reference camera's intrinsics: PNG frames <output_dir>/<split>/NNNNN.png
+        when save_images is set, and trajectory.gif when imageio is
+        installed. Returns the GIF's path, or None when there is no GIF."""
+        out_dir = os.path.join(self.cfg.output_dir, split)
+        os.makedirs(out_dir, exist_ok=True)
+        intrinsics = [float(getattr(reference_camera, k)) for k in ("fx", "fy", "cx", "cy")]
+        frames = []
+        for i, c2w in enumerate(spheric_test_poses(n_poses, radius)):
+            R = c2w[:3, :3].T
+            cam = make_camera(R, -R @ c2w[:3, 3], *intrinsics, reference_camera.width, reference_camera.height,
+                              device=self.device)
+            img = (self.render(cam) * 255).to(torch.uint8).cpu().numpy()
+            frames.append(img)
+            if self.cfg.save_images:
+                write_png(os.path.join(out_dir, f"{i:05d}.png"), img)
+        try:
+            import imageio.v2 as imageio
+        except ImportError:
+            logger.info("[%s] rendered %d frames; imageio is not installed, so no GIF was written", split,
+                        len(frames))
+            return None
+        gif = os.path.join(out_dir, "trajectory.gif")
+        imageio.mimwrite(gif, frames, duration=1000.0 / fps, loop=0)
+        logger.info("[%s] wrote %d frames + %s", split, len(frames), gif)
+        return gif
+
+    def export(self, out_dir: str, name: str = "model") -> None:
+        """<name>.splat, the 3DGS <name>.ply and the COLMAP-style point cloud
+        <name>_points.ply of the alive Gaussians, when export_models is set
+        (gaussian_splatting_evaluator.py:182-194)."""
+        if not self.cfg.export_models:
+            return
+        os.makedirs(out_dir, exist_ok=True)
+        params, alive = self.model.params, self.model.alive
+        save_splat(os.path.join(out_dir, f"{name}.splat"), params, alive)
+        save_gaussian_ply(os.path.join(out_dir, f"{name}.ply"), params, alive)
+        save_colmap_ply(os.path.join(out_dir, f"{name}_points.ply"), params, alive)
+
     @staticmethod
     def _save_image(path: str, img: torch.Tensor) -> None:
-        import imageio.v2 as imageio
-
-        arr = (torch.clamp(img, 0, 1) * 255).to(torch.uint8).cpu().numpy()
-        imageio.imwrite(path, arr)
+        write_png(path, (torch.clamp(img, 0, 1) * 255).to(torch.uint8).cpu().numpy())

@@ -29,7 +29,7 @@ def _build_dataset(config, device) -> dict:
     if name != "synthetic":
         raise NotImplementedError(
             f"dataset.name={name!r}: real datasets are not ported to dogs_tpu_torch yet "
-            "(the data/ slice, ROADMAP.md queue 1, item 15); use dataset.name=synthetic"
+            "(the data/ slice, ROADMAP.md queue 1, item 4); use dataset.name=synthetic"
         )
     scene = make_scene(
         n_gaussians=int(ds.get("n_gaussians", 96)),
@@ -52,7 +52,7 @@ def _build_dataset(config, device) -> dict:
 
 def _trainer_config(config) -> TrainerConfig:
     """utils.py:_trainer_config for the fields the port has. The extra loss
-    terms map onto their flags, which raise in the trainer (ROADMAP item 11)."""
+    terms map onto their flags, which raise in the trainer (ROADMAP item 3)."""
     lr = config.optimizer.lr
     geo = config.geometry
     prune = config.get("prune", {}) or {}
@@ -117,7 +117,7 @@ def create_trainer(config):
     if field_type != "gs":
         raise NotImplementedError(
             f"neural_field_type={field_type!r}: Scaffold-GS is not ported to dogs_tpu_torch yet "
-            "(ROADMAP.md queue 1, item 12)"
+            "(ROADMAP.md queue 1, item 6)"
         )
     device = config.get("device", "cuda")
     cfg, raster_cfg = _trainer_config(config), _raster_config(config)

@@ -4,9 +4,9 @@ The port's copy of dogs_tpu/utils/config.py (the reference's OmegaConf-based
 config stack, conerf/utils/config.py:25-121): `${path.to.key}`
 interpolation, the custom arithmetic resolvers (calc_exp_lr_decay_rate / add
 / sub / mul / divi / calc_milestones), YAML + CLI dotlist merge, and
-attribute-style access. PyYAML is imported only where a YAML string or file
-is parsed: a machine without it (the GPU machine) can still build and
-resolve a config from dicts.
+attribute-style access. YAML is read by utils/yaml_subset.py, the port's
+reader for the subset the shipped configs use, with PyYAML's scalar rules:
+the port needs no PyYAML.
 """
 
 from __future__ import annotations
@@ -15,6 +15,8 @@ import argparse
 import copy
 import re
 from typing import Any
+
+from dogs_tpu_torch.utils import yaml_subset
 
 _INTERP_RE = re.compile(r"\$\{([^{}]+)\}")
 
@@ -51,9 +53,7 @@ def _lookup(root: dict, dotted: str) -> Any:
 
 
 def _parse_scalar(s: str) -> Any:
-    import yaml
-
-    return yaml.safe_load(s)
+    return yaml_subset.parse_scalar(s)
 
 
 def _apply_resolver(name: str, args: list[Any]) -> Any:
@@ -150,10 +150,8 @@ def from_dotlist(items: list[str]) -> ConfigNode:
 
 
 def load_yaml(path: str) -> ConfigNode:
-    import yaml
-
     with open(path) as f:
-        return _to_nodes(yaml.safe_load(f) or {})
+        return _to_nodes(yaml_subset.load(f.read()) or {})
 
 
 def load_config(

@@ -1,6 +1,7 @@
 """CUDA lane: the hand-written kernels (blend forward, blend backward,
-segment sum) against their plain PyTorch versions on the card, and the
-densify surgery on the card against the CPU. Every test here needs a CUDA
+segment sum) against their plain PyTorch versions on the card, the
+LightGaussian importance render through them, and the densify surgery,
+LPIPS and the windowed KNN on the card against the CPU. Every test here needs a CUDA
 device and skips without one. The file imports no JAX, so it runs on a machine with the card alone:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
@@ -15,6 +16,9 @@ import torch
 from dogs_tpu_torch.core import look_at_camera, params_from_numpy
 from dogs_tpu_torch.data import synthetic
 from dogs_tpu_torch.core.gaussians import PARAM_NAMES
+from dogs_tpu_torch.core.knn import mean_knn_dist_sq, morton_codes
+from dogs_tpu_torch.eval.metrics import lpips
+from dogs_tpu_torch.fields import lightgaussian
 from dogs_tpu_torch.fields import model as tmodel
 from dogs_tpu_torch.raster import blend, reduce
 from dogs_tpu_torch.raster.binning import build_tile_bins
@@ -276,3 +280,49 @@ def test_densify_surgery_on_card_matches_cpu_without_host_sync(cuda):
                                    atol=1e-6, rtol=0, msg=lambda m: f"{k}: {m}")
         for m in ("mu", "nu"):
             assert torch.equal(getattr(o_gpu, m)[k].cpu(), getattr(o_cpu, m)[k]), (m, k)
+
+
+def test_importance_render_goes_through_the_kernels_and_matches_plain(cuda):
+    """One VJP through the invD column: K1 forward, K2 and K3 backward, once
+    each; within the gradient bar of the plain path."""
+    make, view, deg = SCENES["random_seed0"]
+    arrays = make()
+    alive = torch.as_tensor(np.random.RandomState(3).rand(arrays["xyz"].shape[0]) > 0.2, device=cuda)
+    model = tmodel.GaussianModelState(params_from_numpy(arrays, cuda), alive,
+                                      *tmodel.fresh_stats(arrays["xyz"].shape[0], cuda))
+    cam = look_at_camera(**view, device=cuda)
+    counts = [blend.blend_forward.launches, blend.blend_backward.launches, reduce.sorted_segment_sum.launches]
+    got = lightgaussian.importance_render(model, cam, RasterConfig(max_tiles_per_gaussian=MT), deg)
+    after = [blend.blend_forward.launches, blend.blend_backward.launches, reduce.sorted_segment_sum.launches]
+    want = lightgaussian.importance_render(model, cam, RasterConfig(max_tiles_per_gaussian=MT, use_kernel=False), deg)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(after, counts)] == [1, 1, 1]
+    scale = float(want.abs().max())
+    assert scale > 0 and not got[~alive].any()
+    torch.testing.assert_close(got / scale, want / scale, atol=GRAD_ATOL, rtol=0)
+    assert all(p.grad is None for p in model.params.parameters())
+
+
+def test_lpips_on_card_matches_cpu_with_tf32_off(cuda):
+    """The convolutions run in f32 on the card (cuDNN's TF32 is off inside
+    the call only): within 1e-5 relative of the CPU value."""
+    g = torch.Generator().manual_seed(0)
+    pred, gt = torch.rand((120, 160, 3), generator=g), torch.rand((120, 160, 3), generator=g)
+    before = torch.backends.cudnn.allow_tf32
+    got, calibrated = lpips(pred.to(cuda), gt.to(cuda))
+    want, _ = lpips(pred, gt)
+    assert torch.backends.cudnn.allow_tf32 == before
+    assert got.device.type == "cuda" and not calibrated
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
+
+
+def test_windowed_knn_on_card_matches_cpu(cuda):
+    """Above 2,048 points: the same Morton codes and stable order on the
+    card; the distances within f32 rounding of the CPU's."""
+    rng = np.random.RandomState(5000)
+    pts = torch.as_tensor((rng.randn(5000, 3) * rng.uniform(0.1, 3.0, 3)).astype(np.float32))
+    valid = torch.as_tensor(rng.rand(5000) > 0.2)
+    codes = morton_codes(pts, valid)
+    assert torch.equal(morton_codes(pts.to(cuda), valid.to(cuda)).cpu(), codes)
+    got = mean_knn_dist_sq(pts.to(cuda), valid.to(cuda)).cpu()
+    torch.testing.assert_close(got, mean_knn_dist_sq(pts, valid), rtol=1e-6, atol=0)

@@ -22,8 +22,10 @@ def run_python(code: str, cwd=REPO):
 
 
 def test_every_module_imports_without_jax():
-    """No JAX, no PyYAML and nothing of dogs_tpu, by module name and by file:
-    a module loaded from a dogs_tpu/ file under another name is caught too."""
+    """No JAX, no PyYAML, no PIL, no imageio and nothing of dogs_tpu, by
+    module name and by file: a module loaded from a dogs_tpu/ file under
+    another name is caught too. (imageio is imported only to write the
+    trajectory's GIF, inside the call.)"""
     proc = run_python(
         "import importlib, pkgutil, sys\n"
         "from pathlib import Path\n"
@@ -31,8 +33,9 @@ def test_every_module_imports_without_jax():
         "names = [m.name for m in pkgutil.walk_packages(dogs_tpu_torch.__path__, 'dogs_tpu_torch.')]\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
-        "assert len(names) >= 26, names\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'dogs_tpu', 'yaml'))\n"
+        "assert len(names) >= 37, names\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'flax', 'dogs_tpu', 'yaml', 'PIL', 'imageio'))\n"
         "assert not bad, bad\n"
         f"ref = Path({str(REPO / 'dogs_tpu')!r})\n"
         "files = {n: Path(getattr(m, '__file__', None) or '/').resolve() for n, m in list(sys.modules.items())}\n"

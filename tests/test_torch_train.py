@@ -13,6 +13,7 @@ import torch
 
 from dogs_tpu.core.knn import _exact_knn_mean_sq
 from dogs_tpu.core.knn import mean_knn_dist_sq as j_knn
+from dogs_tpu.core.knn import morton_codes as j_morton_codes
 from dogs_tpu.data.synthetic import make_scene as j_make_scene
 from dogs_tpu.fields import model as jmodel
 from dogs_tpu.raster.ssim import ssim as j_ssim
@@ -21,7 +22,7 @@ from dogs_tpu.train import optim as joptim
 from dogs_tpu.train import trainer as jtrainer
 from dogs_tpu.train.checkpoint import save_pytree
 from dogs_tpu_torch.core import gaussians as tgs
-from dogs_tpu_torch.core.knn import mean_knn_dist_sq
+from dogs_tpu_torch.core.knn import mean_knn_dist_sq, morton_codes
 from dogs_tpu_torch.data import synthetic
 from dogs_tpu_torch.fields import model as tmodel
 from dogs_tpu_torch.raster.ssim import ssim
@@ -135,10 +136,31 @@ def test_mean_knn_dist_sq_matches_exact_jax(n):
     pts = (rng.randn(n, 3) * rng.uniform(0.1, 3.0)).astype(np.float32)
     valid = rng.rand(n) > 0.2
     want = np.asarray(jnp.where(valid, _exact_knn_mean_sq(jnp.asarray(pts), jnp.asarray(valid), 3), 0.0))
-    got = mean_knn_dist_sq(torch.from_numpy(pts), torch.from_numpy(valid), chunk=257).numpy()
+    got = mean_knn_dist_sq(torch.from_numpy(pts), torch.from_numpy(valid)).numpy()
     np.testing.assert_allclose(got, want, rtol=2e-5, atol=1e-9)
     np.testing.assert_allclose(got, np.asarray(j_knn(jnp.asarray(pts), jnp.asarray(valid))),
                                rtol=2e-5, atol=1e-9)
+
+
+@pytest.mark.parametrize("n,masked", [(3000, False), (5000, True)])
+def test_windowed_knn_matches_jax(n, masked):
+    """Above 2,048 points both packages search +-32 neighbours in Morton
+    order: the same codes, the same stable order, the same result up to
+    f32 rounding of the sums."""
+    rng = np.random.RandomState(n)
+    pts = (rng.randn(n, 3) * rng.uniform(0.1, 3.0, 3)).astype(np.float32)
+    valid = rng.rand(n) > 0.2 if masked else None
+    j_valid = None if valid is None else jnp.asarray(valid)
+    t_valid = None if valid is None else torch.from_numpy(valid)
+    codes = j_morton_codes(jnp.asarray(pts), j_valid)
+    t_codes = morton_codes(torch.from_numpy(pts), t_valid)
+    np.testing.assert_array_equal(t_codes.numpy(), np.asarray(codes))
+    if masked:
+        codes = jnp.where(j_valid, codes, jnp.int32(2**30))
+        t_codes = torch.where(t_valid, t_codes, 2**30)
+    np.testing.assert_array_equal(torch.sort(t_codes, stable=True).indices.numpy(), np.asarray(jnp.argsort(codes)))
+    got = mean_knn_dist_sq(torch.from_numpy(pts), t_valid).numpy()
+    np.testing.assert_allclose(got, np.asarray(j_knn(jnp.asarray(pts), j_valid)), rtol=1e-6, atol=0)
 
 
 def test_init_from_points_and_capacity_helpers_match():
@@ -321,6 +343,7 @@ def test_trainer_tracks_jax_trainer(trained):
     for a, b in zip(jt.metrics_history, tt.metrics_history):
         assert abs(a["psnr"] - b["psnr"]) < PSNR_STEP_TOL, (a["step"], a["psnr"], b["psnr"])
         assert b["n_alive"] == a["n_alive"], (a["step"], a["n_alive"], b["n_alive"])
+        assert b["bin_valid"] == a["bin_valid"], (a["step"], a["bin_valid"], b["bin_valid"])
     for jv, tv in vals:
         assert abs(jv - tv) < VAL_TOL, (jv, tv)
     # Both rise before the opacity reset: train PSNR and the val split.
@@ -391,29 +414,61 @@ def test_reactive_capacity_growth_matches_jax(scenes, caplog):
     np.testing.assert_array_equal(np_(tt.state.model.alive), np.asarray(jt.state.model.alive))
 
 
-@pytest.mark.parametrize("event", ["prune"])
-def test_trainer_raises_at_first_host_event(scenes, event):
-    """The LightGaussian prune is the one host event not ported: the
-    trainer raises before the step it would follow. (Densify and the
-    opacity reset are held against the JAX trainer above.)"""
-    _, ts = scenes
-    kw = dict(prune=dict(prune_iterations=(3,)))[event]
-    tt = ttrainer.GaussianSplatTrainer(
-        ts.cameras[:4], ts.images[:4], ts.points, ts.colors, ttrainer.TrainerConfig(**trainer_cfg(**kw)),
-        device="cpu",
-    )
-    tt.train(num_iterations=2, log_every=0)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tt.train_iteration(3)
-    assert tt.state.step == 2  # raised before taking the step
+@pytest.fixture(scope="module")
+def pruned(scenes):
+    """Both trainers over 6 steps with the LightGaussian prune after steps 3
+    and 5 (percent 0.5, then 0.6 x 0.5), logged every 3 steps; the port's
+    per-step bin_valid is recorded."""
+    js, ts = scenes
+    cfg = trainer_cfg(prune_iterations=(3, 5), prune_percent=0.5, prune_decay=0.6)
+    jt = jtrainer.GaussianSplatTrainer(js.cameras[:8], js.images[:8], js.points, js.colors,
+                                       jtrainer.TrainerConfig(**cfg), J_RASTER, seed=42)
+    tt = ttrainer.GaussianSplatTrainer(ts.cameras[:8], ts.images[:8], ts.points, ts.colors,
+                                       ttrainer.TrainerConfig(**cfg), T_RASTER, seed=42, device="cpu")
+    per_step = []
+    take_step = tt.train_iteration
+
+    def recording(step):
+        metrics = take_step(step)
+        per_step.append(metrics["bin_valid"])
+        return metrics
+
+    tt.train_iteration = recording
+    for trainer in (jt, tt):
+        trainer.train(num_iterations=6, log_every=3)
+    return jt, tt, per_step
+
+
+def test_trainer_lightgaussian_prune_matches_jax(pruned):
+    """n_alive at each log and the alive mask after both prunes are the JAX
+    trainer's; each prune removed at least k = int(percent (n_alive - 1))."""
+    jt, tt, _ = pruned
+    alive = [int(m["n_alive"]) for m in tt.metrics_history]
+    assert alive == [int(m["n_alive"]) for m in jt.metrics_history]
+    final = int(tt.state.model.num_alive)
+    assert final == int(jt.state.model.num_alive)
+    np.testing.assert_array_equal(np_(tt.state.model.alive), np.asarray(jt.state.model.alive))
+    # 80 points alive at the log of step 3 (before its prune); the first
+    # prune alone removes at least int(0.5 x 79).
+    assert alive[0] == 80 and final <= 80 - int(0.5 * 79), (alive, final)
+
+
+def test_log_window_reports_the_max_bin_valid(pruned):
+    """F4: bin_valid at a log is the maximum over the window's steps, as the
+    JAX trainer reports it, not the last step's."""
+    jt, tt, per_step = pruned
+    got = [m["bin_valid"] for m in tt.metrics_history]
+    assert got == [max(per_step[:3]), max(per_step[3:])]
+    assert got == [m["bin_valid"] for m in jt.metrics_history]
+    assert got != [per_step[2], per_step[5]]  # the windows' last steps are not their maxima
 
 
 @pytest.mark.parametrize("flag", ["use_trained_exposure", "use_appearance_mask", "optimize_camera_poses"])
 def test_unported_loss_terms_raise(flag):
     cfg = ttrainer.TrainerConfig(**{flag: True})
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match=r"item 3\)"):
         ttrainer.make_train_step(cfg, T_RASTER, 1.0, 0, (0.0, 0.0, 0.0))
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError, match=r"item 5\)"):
         ttrainer.make_train_step(ttrainer.TrainerConfig(), T_RASTER, 1.0, 0, (0.0, 0.0, 0.0), admm=True)
 
 
