@@ -12,7 +12,8 @@ D-SSIM loss, the blend backward kernel, the K->N index prep and the
 segment-sum kernel, the projection VJP, sparse Adam, and the host loop's
 densify events, opacity reset, capacity growth and checkpoints), the
 LightGaussian importance prune (one VJP through all three kernels per
-camera), export, and the train and eval CLIs, in phases:
+camera), export, the train and eval CLIs, and real-scene training (a COLMAP
+scene through the data slice and the per-image loss terms), in phases:
 
   1. device   require CUDA; print the card's name and power limit
   2. build    compile the three kernels from dogs_tpu_torch/csrc with nvcc,
@@ -76,6 +77,31 @@ camera), export, and the train and eval CLIs, in phases:
               0.01 dB of the train CLI's final validate()), PNG renders of
               the camera's size, .splat of 32 x n_alive bytes, the .ply read
               back, n_test_poses trajectory frames
+  6f. real scene  the bench model rendered by the port at 17 cameras
+              (1152x864), every image but image 0 under a known exposure,
+              shading and pose noise, distorted by an OPENCV k1, upsampled x2
+              and written as 2304x1728 PNGs with cameras/images/points3D.bin
+              (500k jittered bench means), as scene "rubble" whose
+              Mega-NeRF val list holds image 16, so that image 0 (the pose
+              gauge) trains; urban3d_admm.yaml on one device
+              through dogs_tpu_torch.factory.create_trainer at factor 2 (the
+              COLMAP read, minify and undistort caches timed), the lazy
+              reader, the appearance mask at lambda_mask 0.5, the trained
+              exposure and pose refinement from step 10: 40 steps (K1, K2,
+              K3 once a step; loss falls; colour-corrected val PSNR rises; the
+              mask, exposure and pose leaves finite and moved; image 0's
+              pose row still zero, its moments moved), ms/step and
+              peak memory, the mask CNN's device ms forward + backward (exact
+              f32 as the step runs it, and cuDNN with TF32 off and on), its
+              forward and gradients on the card against the CPU at 96x80 at
+              1e-5 / 2e-3 of the max, and at 1152x864 the forward at 1e-5 and
+              the gradients against a CPU f64 reference within twice the CPU
+              f32's own error (f32 accumulation at that size), the exposure
+              and pose errors against the truth at steps 0 and 40, the
+              checkpoint reloaded bit for bit, python -m dogs_tpu_torch.eval
+              on it in its own process (val PSNR within 1e-4 dB of the final
+              validate()), then the same 40 steps with geometry.mask=false
+              (its kernels held against plain at its step 41's inputs)
   7. report   per-kernel JSON line (time, plain time, bound, share, library
               call time), then the device JSON line (last line)
 
@@ -86,6 +112,7 @@ Any failed phase raises, so the exit code is non-zero. Imports no JAX.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import logging
 import os
@@ -120,6 +147,13 @@ RESUME_TOL = 1e-5  # resumed against uninterrupted parameters, of each leaf's ma
 PRUNE_PERCENT = 0.25  # urban3d.yaml's prune.prune_percent
 CLI_CONFIG = "config/gaussian_splatting/synthetic_smoke.yaml"
 CLI_STEPS, CLI_POSES = 20, 4
+SCENE_CONFIG = "config/gaussian_splatting/urban3d_admm.yaml"
+SCENE_IMAGES, SCENE_STEPS = 17, 40
+# Scene "rubble" of urban3d_admm.yaml: Mega-NeRF's split rule takes the val
+# images by name from val/rgbs/, here the last, so that image 0 (the pose
+# gauge) trains.
+SCENE_NAME = "rubble"
+SCENE_EXPNAME = f"gs_novel_view_synthesis_urban3d_{SCENE_NAME}"  # the CLIs' name for it
 
 
 class SmokeFailure(RuntimeError):
@@ -168,12 +202,13 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; nothing was run", file=sys.stderr)
         return 1
 
-    from dogs_tpu_torch import kernels
+    from dogs_tpu_torch import factory, kernels
     from dogs_tpu_torch.core import look_at_camera, params_from_numpy
     from dogs_tpu_torch.core.gaussians import PARAM_NAMES
-    from dogs_tpu_torch.data import synthetic
+    from dogs_tpu_torch.data import colmap, synthetic
+    from dogs_tpu_torch.data import dataset as tdataset
     from dogs_tpu_torch.eval.evaluator import EvalConfig, GaussianSplatEvaluator
-    from dogs_tpu_torch.fields import lightgaussian
+    from dogs_tpu_torch.fields import appearance, lightgaussian
     from dogs_tpu_torch.fields.io import load_gaussian_ply
     from dogs_tpu_torch.fields.model import GaussianModelState
     from dogs_tpu_torch.raster import blend, reduce
@@ -182,8 +217,10 @@ def main() -> int:
     from dogs_tpu_torch.raster.ssim import ssim
     from dogs_tpu_torch.raster.tiled import RasterConfig, entry_matrix, render_tiled
     from dogs_tpu_torch.train import trainer as trainer_mod
-    from dogs_tpu_torch.train.checkpoint import CheckpointManager
+    from dogs_tpu_torch.tools import colmap_scene
+    from dogs_tpu_torch.train.checkpoint import CheckpointManager, load_train_state, train_state_arrays
     from dogs_tpu_torch.utils import png
+    from dogs_tpu_torch.utils.config import load_config
 
     dev = torch.device("cuda", 0)
     # Full-f32 references: matmuls and convolutions without TF32.
@@ -681,28 +718,30 @@ def main() -> int:
     peaks_before_parity: list[int] = []
     surgery = (trainer_mod.densify_and_prune, trainer_mod.zero_moments_at, trainer_mod.grow_capacity)
 
-    def path_parity(label, model, cam, gt, deg):
+    def path_parity(label, model, cam, gt, deg, rcfg=None, tag="densify"):
         """One train step's inputs on this path (its model, with the dead
         slots of pruning, at SH `deg`): each kernel against its plain version
         at the tolerances of phases 3 and 5, and the step's gradients,
         kernels against plain. The launches made here do not count: the
         counts are restored. Neither does its memory: returns the peak
-        before it, and resets the peak after it."""
+        before it, and resets the peak after it. `rcfg`: the path's raster
+        config (default: bench.py's, max_tiles_per_gaussian 12)."""
+        rcfg = rcfg or kcfg
         saved = {fn: fn.launches for fn in counted}
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated(dev)
         p, alive = model.params, model.alive
         with torch.no_grad():
-            args, bins = frame_inputs(p, cam, deg, mt=BENCH_MT, alive=alive)
+            args, bins = frame_inputs(p, cam, deg, mt=rcfg.max_tiles_per_gaussian, alive=alive)
             ent_n, idx, starts, *grid = args
             got, want = blend.blend_forward(*args), blend.blend_forward_reference(*args)
             errs = [mostly_close(got[:, rows], want[:, rows], tol, name=f"{label} forward {what}")
                     for rows, tol, what in ((slice(0, 3), 3e-3, "rgb"), (3, 5e-3, "alpha"), (4, 3e-3, "invdepth"))]
             max_err["fwd"] = max(max_err["fwd"], *errs)
             cot = random_cot(args, seed=13)
-            d1 = blend.blend_backward(ent_n, idx, starts, cot, *grid, depth_threshold=kcfg.depth_threshold)
+            d1 = blend.blend_backward(ent_n, idx, starts, cot, *grid, depth_threshold=rcfg.depth_threshold)
             dref = blend.blend_backward_reference(ent_n, idx, starts, cot, *grid,
-                                                  depth_threshold=kcfg.depth_threshold)
+                                                  depth_threshold=rcfg.depth_threshold)
             check(bool(torch.isfinite(d1).all()) and not d1[:, 10:].any(),
                   f"{label}: backward output non-finite or columns 10-15 written")
             err = max(mostly_close(d1[:, c], dref[:, c], GRAD_ATOL, name=f"{label} backward column {c}")
@@ -711,14 +750,14 @@ def main() -> int:
             src, runs = reduce.gaussian_runs(bins.order, idx, p.capacity)
             for dt in reduce.REDUCE_DTYPES:
                 check_segment_sum(f"{label} {dt}", d1, src, runs, p.capacity, dt)
-        g_kernel = step_grads(p, cam, gt, kcfg, alive, deg)
-        g_plain = step_grads(p, cam, gt, kplain, alive, deg)
+        g_kernel = step_grads(p, cam, gt, rcfg, alive, deg)
+        g_plain = step_grads(p, cam, gt, dataclasses.replace(rcfg, use_kernel=False), alive, deg)
         worst = {}
         for name, gk, gp in zip(PARAM_NAMES + ("means2d_offset",), g_kernel, g_plain):
             check(bool(torch.isfinite(gk).all()), f"{label}: non-finite kernel gradient {name}")
             mostly_close(gk, gp, GRAD_ATOL, name=f"{label} grad {name}")
             worst[name] = float(((gk - gp).abs() / (gp.abs().max() + 1e-12)).max())
-        print(f"[densify] {label}: capacity {p.capacity:,}, n_alive {int(model.num_alive):,}, SH {deg}, "
+        print(f"[{tag}] {label}: capacity {p.capacity:,}, n_alive {int(model.num_alive):,}, SH {deg}, "
               f"K={idx.shape[0]:,}: forward max|d| {max(errs):.3e}, backward max|d| {err:.3e}, segment sum "
               f"bit for bit; step gradients kernels vs plain, worst scaled |d| per leaf "
               + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()))
@@ -953,9 +992,9 @@ def main() -> int:
     # ---- 6e. the train and eval CLIs, each in its own process ---------------
     root = os.path.dirname(os.path.abspath(__file__))
 
-    def run_cli(module: str, *args: str) -> tuple[str, float]:
+    def run_cli(module: str, *args: str, config: str = CLI_CONFIG) -> tuple[str, float]:
         t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-m", module, "--config", CLI_CONFIG, *args], cwd=root,
+        proc = subprocess.run([sys.executable, "-m", module, "--config", config, *args], cwd=root,
                               capture_output=True, text=True, timeout=600)
         seconds = time.perf_counter() - t0
         if proc.returncode != 0:
@@ -996,6 +1035,219 @@ def main() -> int:
           f"{resume_s:.1f} s (nothing to do), eval CLI {eval_s:.1f} s: val psnr {cli_mean['psnr']:.4f} ssim "
           f"{cli_mean['ssim']:.5f} lpips_uncalibrated {cli_mean['lpips_uncalibrated']:.5f}, {n_alive_cli} "
           f"Gaussians exported, {len(frames)} trajectory frames, GIF {'written' if gif else 'skipped (no imageio)'}")
+
+    # ---- 6f. real-scene training (main paths 7 and 8): a COLMAP scene ----------
+    # The bench model rendered at 17 cameras and written as a COLMAP scene
+    # with known per-image perturbations (tools/colmap_scene.py), then
+    # urban3d_admm.yaml on one device through the factory, with and without
+    # the appearance mask.
+    with tempfile.TemporaryDirectory() as tmp:
+        scene_root = os.path.join(tmp, "data", SCENE_NAME)
+        scene_cams = colmap_scene.make_cameras(SCENE_IMAGES, synthetic.BENCH_WIDTH, synthetic.BENCH_HEIGHT,
+                                               1000.0, dev)
+        t0 = time.perf_counter()
+        truth = colmap_scene.write_scene(scene_root, params, scene_cams)
+        write_s = time.perf_counter() - t0
+        os.makedirs(os.path.join(scene_root, "val", "rgbs"))
+        open(os.path.join(scene_root, "val", "rgbs", f"frame_{SCENE_IMAGES - 1:03d}.png"), "w").close()
+        del scene_cams
+        t0 = time.perf_counter()
+        colmap_model = colmap.load_model(os.path.join(scene_root, "sparse", "0"))
+        colmap_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tdataset.minify_images(scene_root, 2)
+        minify_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tdataset.load_scene(scene_root, factor=2, val_interval=100, normalize=False, use_manhattan_world=True,
+                            scene_name=SCENE_NAME, dataset_name="urban3d")  # makes the undistortion cache
+        undistort_s = time.perf_counter() - t0
+        check(len(colmap_model.images) == SCENE_IMAGES and colmap_model.points_xyz.shape == (n, 3),
+              f"real scene: COLMAP model of {len(colmap_model.images)} images, {colmap_model.points_xyz.shape} points")
+        del colmap_model
+        scene_args = [f"dataset.root_dir={os.path.join(tmp, 'data')}", "dataset.multi_blocks=false",
+                      "dataset.factor=2", "appearance.use_trained_exposure=true", "optimizer.lr.pose=1e-4",
+                      "geometry.opt_pose_start_iter=10", f"root_dir={os.path.join(tmp, 'out')}",
+                      "trainer.enable_tensorboard=false"]
+
+        def scene_trainer(*extra: str):
+            config = load_config(os.path.join(root, SCENE_CONFIG), cli_overrides=scene_args + list(extra))
+            config.dataset.scene, config.expname = SCENE_NAME, SCENE_EXPNAME
+            t0 = time.perf_counter()
+            trainer, manager, _ = factory.create_trainer(config)
+            torch.cuda.synchronize()
+            return trainer, manager, time.perf_counter() - t0
+
+        def scene_run(trainer, label: str) -> tuple[list[float], list[float], float]:
+            """SCENE_STEPS steps, each between synchronizes; the kernel
+            counts and the peak memory of just these steps."""
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            reset_counts()
+            losses, ms = [], []
+            for step in range(1, SCENE_STEPS + 1):
+                t0 = time.perf_counter()
+                m = trainer.train_iteration(step)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                losses.append(m["loss"])
+            for name, launches in add_counts(label, list(counted)).items():
+                check(launches == SCENE_STEPS, f"{label}: {name} launched {launches} times, expected one per step")
+            losses = torch.stack(losses).tolist()
+            check(all(np.isfinite(losses)), f"{label}: non-finite loss")
+            first, last = np.mean(losses[:8]), np.mean(losses[-8:])
+            check(last < first, f"{label}: loss did not fall: first 8 mean {first}, last 8 mean {last}")
+            return losses, ms, torch.cuda.max_memory_allocated(dev) / 2**20
+
+        strainer, smanager, build_s = scene_trainer()
+        ts = strainer.state
+        tc = strainer.cfg
+        check(tc.use_appearance_mask and tc.lambda_mask == 0.5 and tc.use_trained_exposure and tc.optimize_camera_poses
+              and tc.opt_pose_start_iter == 10, f"real scene: the config's terms are not all on: {tc}")
+        check(hasattr(strainer.images, "hint") and len(strainer.cameras) == SCENE_IMAGES - 1
+              and len(strainer.val_cameras) == 1 and strainer.cameras[0].image_index == 0
+              and ts.exposure.shape[0] == SCENE_IMAGES - 1,
+              "real scene: expected images 0-15 lazily read for training, each owning its row, and 1 val image")
+        rows = ts.exposure.shape[0]
+
+        def per_image_errors(state) -> tuple[float, float]:
+            e = np.abs(state.exposure[1:rows].cpu().numpy() - truth["exposure"][1:rows]).mean()
+            p = np.abs(state.pose_deltas[1:rows].cpu().numpy() - truth["pose_delta"][1:rows]).mean()
+            return float(e), float(p)
+
+        before = {k: v.detach().clone() for k, v in appearance.flatten(ts.mask_params).items()}
+        before.update(exposure=ts.exposure.clone(), pose_deltas=ts.pose_deltas.clone())
+        errors0 = per_image_errors(ts)
+        val0 = strainer.validate()["val_psnr"]
+        losses, mask_ms, mask_peak_mb = scene_run(strainer, "real scene")
+        cam_i = strainer._order[-1] if strainer._order else 0  # the camera of step 41
+        path_parity(f"step {SCENE_STEPS + 1}'s inputs (depth_threshold {strainer.raster_cfg.depth_threshold}, "
+                    f"max_tiles {strainer.raster_cfg.max_tiles_per_gaussian})", ts.model, strainer.cameras[cam_i],
+                    strainer._gt_on_device(cam_i), 0, rcfg=strainer.raster_cfg, tag="real scene")
+        val40 = strainer.validate()["val_psnr"]
+        errors40 = per_image_errors(ts)
+        check(val40 > val0, f"real scene: colour-corrected val PSNR did not rise: {val0:.3f} -> {val40:.3f} dB")
+        after = dict(appearance.flatten(ts.mask_params), exposure=ts.exposure, pose_deltas=ts.pose_deltas)
+        for key, leaf in after.items():
+            check(bool(torch.isfinite(leaf).all()), f"real scene: non-finite {key}")
+            check(not torch.equal(leaf.detach(), before[key]), f"real scene: {key} did not move")
+        check(bool((ts.pose_deltas[0] == 0).all()) and bool((ts.pose_mu[0] != 0).any()),
+              "real scene: image 0's pose row moved, or its moments did not")
+        del before, after
+
+        # The mask CNN: device ms of forward + backward at the step's shapes
+        # from CUDA events, in exact f32 as the step runs it (cuDNN off) and
+        # through cuDNN with TF32 off and on, for their cost and error; its
+        # forward and gradients on the card against the CPU at the test
+        # size (96x80) at the test bars, and at the step's shapes against a
+        # CPU f64 reference, where f32 itself is off by the accumulation
+        # error that the CPU f32 run measures.
+        with torch.no_grad():
+            mask_in = torch.clamp(render_tiled(ts.model.params, strainer.cameras[0], strainer.raster_cfg,
+                                               alive=ts.model.alive, active_sh_degree=0).image, 0.0, 1.0)
+        cudnn = torch.backends.cudnn
+        convs = {
+            "exact": appearance.exact_f32,
+            "cudnn": lambda: cudnn.flags(enabled=True, benchmark=False, deterministic=False, allow_tf32=False),
+            "cudnn_tf32": lambda: cudnn.flags(enabled=True, benchmark=False, deterministic=False, allow_tf32=True),
+        }
+
+        def mask_fwd_bwd(mask_params, x, cot, conv="exact"):
+            leaves = list(appearance.flatten(mask_params).values()) + [x]
+            with convs[conv]():
+                mask = appearance.apply_appearance(mask_params, x, 1)
+                return [mask.detach()] + list(torch.autograd.grad((mask * cot).sum(), leaves))
+
+        def mask_on(device, dtype, x, cot, mask_params=None):
+            """(the mask's parameters (the trained ones by default), x, cot)
+            as `dtype` leaves on `device`."""
+            p = {k: {kk: torch.as_tensor(vv).detach().to(device, dtype).requires_grad_(True) for kk, vv in v.items()}
+                 if isinstance(v, dict) else torch.as_tensor(v).detach().to(device, dtype).requires_grad_(True)
+                 for k, v in (mask_params or ts.mask_params).items()}
+            return p, x.detach().to(device, dtype).requires_grad_(True), cot.to(device, dtype)
+
+        def scaled_err(got, want):
+            """Worst per-leaf max |d| over the leaf's max, forward apart."""
+            errs = [float((a.cpu().double() - b.double()).abs().max() / (b.double().abs().max() + 1e-30))
+                    for a, b in zip(got, want)]
+            return errs[0], max(errs[1:])
+
+        g_cot = torch.Generator().manual_seed(5)
+        cot = torch.randn(mask_in.shape, generator=g_cot)
+        card_args = mask_on(dev, torch.float32, mask_in, cot)
+        cnn_ms = {c: cuda_ms(lambda c=c: mask_fwd_bwd(*card_args, conv=c), 10) for c in convs}
+        t0 = time.perf_counter()
+        want64 = mask_fwd_bwd(*mask_on("cpu", torch.float64, mask_in, cot))
+        cpu32 = mask_fwd_bwd(*mask_on("cpu", torch.float32, mask_in, cot))
+        cnn_cpu_s = time.perf_counter() - t0
+        card = {c: mask_fwd_bwd(*card_args, conv=c) for c in convs}
+        fwd_err, _ = scaled_err(card["exact"], cpu32)
+        f32_err = scaled_err(cpu32, want64)[1]
+        grad_errs = {c: scaled_err(out, want64)[1] for c, out in card.items()}
+        check(fwd_err <= 1e-5, f"real scene: mask CNN forward, card vs CPU, {fwd_err:.3e} of the max > 1e-5")
+        check(grad_errs["exact"] <= max(GRAD_ATOL, 2 * f32_err),
+              f"real scene: mask CNN gradients on the card {grad_errs['exact']:.3e} of the leaf max from the CPU "
+              f"f64 ones, the CPU's f32 {f32_err:.3e}")
+        # The CUDA lane's case: the initial weights, inputs from seed 0.
+        init = appearance.init_appearance_arrays(4)
+        g0 = torch.Generator().manual_seed(0)
+        small, small_cot = torch.rand((80, 96, 3), generator=g0), torch.randn((80, 96, 3), generator=g0)
+        small_cpu = mask_fwd_bwd(*mask_on("cpu", torch.float32, small, small_cot, init))
+        small_fwd, small_grad = scaled_err(mask_fwd_bwd(*mask_on(dev, torch.float32, small, small_cot, init)),
+                                           small_cpu)
+        check(small_fwd <= 1e-5 and small_grad <= GRAD_ATOL,
+              f"real scene: mask CNN at 96x80, card vs CPU: forward {small_fwd:.3e}, gradients {small_grad:.3e}")
+        small_cudnn = scaled_err(mask_fwd_bwd(*mask_on(dev, torch.float32, small, small_cot, init), conv="cudnn"),
+                                 small_cpu)[1]
+        del card, card_args, want64, cpu32, mask_in, cot
+
+        path = strainer.save_checkpoint(smanager)
+        reloaded, _ = load_train_state(path, ts)
+        a, b = train_state_arrays(ts), train_state_arrays(reloaded)
+        check(list(a) == list(b) and all(np.array_equal(a[k], b[k]) and a[k].dtype == b[k].dtype for k in a),
+              "real scene: the checkpoint does not reload bit for bit")
+        n_mask_leaves = sum(k.startswith(".mask_params/") for k in a)
+        del reloaded, a, b
+        log, scene_eval_s = run_cli("dogs_tpu_torch.eval", "--scene", SCENE_NAME, *scene_args, "eval.n_test_poses=2",
+                                    config=SCENE_CONFIG)
+        with open(os.path.join(tmp, "out", SCENE_EXPNAME, "eval", "val", "metrics.json")) as f:
+            scene_eval = json.load(f)["mean"]
+        check(abs(scene_eval["psnr"] - val40) <= 1e-4,
+              f"real scene: eval CLI val PSNR {scene_eval['psnr']} vs the final validate() {val40}")
+        strainer.images.close()
+        del strainer, ts
+
+        nomask_trainer, _, nomask_build_s = scene_trainer("geometry.mask=false")
+        check(not nomask_trainer.cfg.use_appearance_mask and nomask_trainer.state.mask_params == {},
+              "real scene: geometry.mask=false still builds the mask")
+        nomask_losses, nomask_ms, nomask_peak_mb = scene_run(nomask_trainer, "real scene, no mask")
+        cam_i = nomask_trainer._order[-1] if nomask_trainer._order else 0
+        path_parity(f"the no-mask run's step {SCENE_STEPS + 1} inputs", nomask_trainer.state.model,
+                    nomask_trainer.cameras[cam_i], nomask_trainer._gt_on_device(cam_i), 0,
+                    rcfg=nomask_trainer.raster_cfg, tag="real scene, no mask")
+        nomask_trainer.images.close()
+        del nomask_trainer
+    print(f"[real scene] ({smi}) wrote {SCENE_IMAGES} images of 2304x1728 (PNG) and a COLMAP model of {n:,} points "
+          f"in {write_s:.2f} s; scene load: COLMAP read {colmap_s:.3f} s, minify x2 {minify_s:.2f} s, undistort "
+          f"cache {undistort_s:.2f} s; create_trainer from the caches {build_s:.2f} s (no mask {nomask_build_s:.2f} s)")
+    print(f"[real scene] ({smi}) {SCENE_STEPS} steps at 1152x864 with the mask, exposure and pose refinement: loss "
+          f"{losses[0]:.5f} -> {losses[-1]:.5f}; colour-corrected val PSNR {val0:.3f} -> {val40:.3f} dB; ms/step "
+          f"median {np.median(mask_ms[8:]):.2f} (first 8 median {np.median(mask_ms[:8]):.2f}); peak memory "
+          f"{mask_peak_mb:.0f} MiB")
+    print(f"[real scene] ({smi}) the same steps with geometry.mask=false: loss {nomask_losses[0]:.5f} -> "
+          f"{nomask_losses[-1]:.5f}; ms/step median {np.median(nomask_ms[8:]):.2f} (first 8 median "
+          f"{np.median(nomask_ms[:8]):.2f}); peak memory {nomask_peak_mb:.0f} MiB")
+    print(f"[real scene] ({smi}) mask CNN at 1152x864, forward + backward, device ms (CUDA events, 10 runs): "
+          f"{cnn_ms['exact']:.3f} in exact f32 (cuDNN off, the step's), {cnn_ms['cudnn']:.3f} through cuDNN with "
+          f"TF32 off, {cnn_ms['cudnn_tf32']:.3f} with TF32 on; gradients against the CPU's f64, worst leaf: exact "
+          f"{grad_errs['exact']:.2e}, cuDNN {grad_errs['cudnn']:.2e}, cuDNN TF32 {grad_errs['cudnn_tf32']:.2e} "
+          f"(CPU f32 {f32_err:.2e}); forward card vs CPU {fwd_err:.2e}; at 96x80 card vs CPU forward "
+          f"{small_fwd:.2e}, gradients {small_grad:.2e} (through cuDNN with TF32 off {small_cudnn:.2e}; the "
+          f"initial weights) (CPU "
+          f"references {cnn_cpu_s:.2f} s)")
+    print(f"[real scene] ({smi}) per-image errors against the truth over rows 1-{rows - 1} (mean |d|): exposure "
+          f"{errors0[0]:.5f} -> {errors40[0]:.5f}, pose delta {errors0[1]:.3e} -> {errors40[1]:.3e} (step 0 -> "
+          f"{SCENE_STEPS}); checkpoint with {n_mask_leaves} mask leaves reloaded bit for bit; eval CLI "
+          f"{scene_eval_s:.1f} s: val psnr {scene_eval['psnr']:.6f} (final validate() {val40:.6f})")
 
     # ---- 7. report ---------------------------------------------------------
     sources = {

@@ -1,8 +1,10 @@
-"""Quaternion / covariance math needed by projection.
+"""Quaternion / covariance math needed by projection, and the SO(3) / SE(3)
+exponentials of pose refinement.
 
-Port of the projection subset of dogs_tpu/core/transforms.py. Quaternions
-are (w, x, y, z), normalized at point of use; scales are linear (post-exp).
-Everything is written elementwise, so no matmul precision flag applies.
+Port of the projection and pose subset of dogs_tpu/core/transforms.py.
+Quaternions are (w, x, y, z), normalized at point of use; scales are linear
+(post-exp). Everything is written elementwise, so no matmul precision flag
+applies.
 """
 
 from __future__ import annotations
@@ -49,3 +51,44 @@ def covariance_sym6(scale: torch.Tensor, quat: torch.Tensor) -> tuple:
     s23 = m10 * m20 + m11 * m21 + m12 * m22
     s33 = m20 * m20 + m21 * m21 + m22 * m22
     return s11, s12, s13, s22, s23, s33
+
+
+def skew(w: torch.Tensor) -> torch.Tensor:
+    """(..., 3) -> (..., 3, 3) cross-product matrix [w]x."""
+    wx, wy, wz = w[..., 0], w[..., 1], w[..., 2]
+    zero = torch.zeros_like(wx)
+    return torch.stack(
+        [torch.stack([zero, -wz, wy], -1), torch.stack([wz, zero, -wx], -1), torch.stack([-wy, wx, zero], -1)],
+        -2,
+    )
+
+
+def matmul3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) @ (..., 3, k) as elementwise products and sums: exact f32
+    on every device, where a matmul may run in TF32."""
+    return (a[..., :, :, None] * b[..., None, :, :]).sum(dim=-2)
+
+
+def so3_exp(w: torch.Tensor) -> torch.Tensor:
+    """Rodrigues: (..., 3) axis-angle -> (..., 3, 3) rotation, in the sinc form
+    R = I + a [w]x + b [w]x^2 with series branches below theta^2 = 1e-8.
+    Pose deltas start at zero, where the naive normalize-then-rotate form
+    has NaN gradients: both branches of each `where` are finite with finite
+    gradients there, because every division uses the branch-switched
+    denominator."""
+    theta_sq = torch.sum(w * w, dim=-1, keepdim=True)
+    small = theta_sq < 1e-8
+    theta_sq_safe = torch.where(small, torch.ones_like(theta_sq), theta_sq)
+    theta = torch.sqrt(theta_sq_safe)
+    a = torch.where(small, 1.0 - theta_sq / 6.0, torch.sin(theta) / theta)
+    b = torch.where(small, 0.5 - theta_sq / 24.0, (1.0 - torch.cos(theta)) / theta_sq_safe)
+    K = skew(w)
+    eye = torch.eye(3, dtype=w.dtype, device=w.device).expand(K.shape)
+    return eye + a[..., None] * K + b[..., None] * matmul3(K, K)
+
+
+def se3_exp(xi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(..., 6) twist [rho, w] -> (R (..., 3, 3), t (..., 3)) with the
+    first-order translation t = rho (enough for the small corrections of
+    camera refinement, whose deltas start at zero)."""
+    return so3_exp(xi[..., 3:6]), xi[..., 0:3]

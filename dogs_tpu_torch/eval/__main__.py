@@ -9,9 +9,10 @@ checkpoint, scores the val split (PSNR, SSIM, LPIPS; metrics.json and PNG
 renders under <root_dir>/<expname>/eval/val), exports .splat / .ply / the
 COLMAP point cloud to <root_dir>/<expname>/export, and renders the spheric
 test trajectory (`eval.n_test_poses` frames at `eval.test_radius`) to
-eval/test. `device=cpu` runs on the CPU (the default is the card).
-Block-parallel ADMM runs (`dataset.multi_blocks`) and Scaffold-GS raise
-`NotImplementedError`.
+eval/test. `device=cpu` runs on the CPU (the default is the card). Works
+on the synthetic scene and on COLMAP scenes (PNG images on a machine
+without PIL). Block-parallel ADMM runs (`dataset.multi_blocks`) and
+Scaffold-GS raise `NotImplementedError` from the factory.
 """
 
 from __future__ import annotations
@@ -45,11 +46,6 @@ def create_evaluator(config, trainer) -> GaussianSplatEvaluator:
 def evaluate(config) -> dict:
     """Evaluate, export and render the trajectory of one experiment;
     returns the val metrics."""
-    if bool(config.dataset.get("multi_blocks", False)):
-        raise NotImplementedError(
-            "dataset.multi_blocks: evaluating a block-parallel ADMM run is not ported to dogs_tpu_torch yet "
-            "(ROADMAP.md queue 1, item 5)"
-        )
     trainer, ckpt_manager, writer = create_trainer(config)
     if writer is not None:
         writer.close()

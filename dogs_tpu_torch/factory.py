@@ -2,10 +2,13 @@
 
 `create_trainer(config)` builds (trainer, checkpoint_manager,
 tensorboard_writer) from a resolved config (utils/config.py). The port
-supports `neural_field_type: gs` on `dataset.name: synthetic`; Scaffold-GS
-and real datasets raise `NotImplementedError`. The config key `device`
-(default "cuda") places the trainer; `device=cpu` runs the plain PyTorch
-paths.
+supports `neural_field_type: gs` on the synthetic scene and on COLMAP scenes
+(every other `dataset.name`: data/dataset.py `load_scene` under
+<dataset.root_dir>/<dataset.scene>, the train split streamed through a
+`LazyImageList`); Scaffold-GS and block-parallel ADMM
+(`dataset.multi_blocks`) raise `NotImplementedError`. The config key
+`device` (default "cuda") places the trainer; `device=cpu` runs the plain
+PyTorch paths.
 """
 
 from __future__ import annotations
@@ -13,6 +16,8 @@ from __future__ import annotations
 import logging
 import os
 
+from dogs_tpu_torch.data.dataset import load_scene
+from dogs_tpu_torch.data.reader import LazyImageList
 from dogs_tpu_torch.data.synthetic import make_scene
 from dogs_tpu_torch.raster.tiled import RasterConfig
 from dogs_tpu_torch.train.checkpoint import CheckpointManager
@@ -22,14 +27,30 @@ logger = logging.getLogger(__name__)
 
 
 def _build_dataset(config, device) -> dict:
-    """The synthetic teacher-splat scene, split as utils.py splits it: the
-    first max(n_cams // val_interval, 1) cameras are the val split."""
+    """The scene as utils.py builds it. A COLMAP scene: `load_scene` with the
+    config's keys, the train images streamed lazily (decoded at each
+    record's size, undistorted), the val images loaded up front. The
+    synthetic teacher-splat scene: the first max(n_cams // val_interval, 1)
+    cameras are the val split."""
     ds = config.dataset
-    name = ds.get("name", "synthetic")
-    if name != "synthetic":
-        raise NotImplementedError(
-            f"dataset.name={name!r}: real datasets are not ported to dogs_tpu_torch yet "
-            "(the data/ slice, ROADMAP.md queue 1, item 4); use dataset.name=synthetic"
+    if ds.get("name", "synthetic") != "synthetic":
+        data = load_scene(
+            os.path.join(ds.root_dir, str(ds.scene)),
+            factor=int(ds.get("factor", 1)),
+            val_interval=int(ds.get("val_interval", 8)),
+            model_folder=ds.get("model_folder", "sparse"),
+            normalize=bool(ds.get("scale", True)),
+            use_manhattan_world=bool(ds.get("use_manhattan_world", False)),
+            scene_name=str(ds.scene),
+            dataset_name=str(ds.get("name", "")),
+        )
+        return dict(
+            train_cameras=[r.to_camera(device) for r in data.train_cameras],
+            train_images=LazyImageList(data.train_cameras),
+            val_cameras=[r.to_camera(device) for r in data.val_cameras],
+            val_images=[r.load() for r in data.val_cameras],
+            points=data.points,
+            colors=data.colors,
         )
     scene = make_scene(
         n_gaussians=int(ds.get("n_gaussians", 96)),
@@ -51,8 +72,7 @@ def _build_dataset(config, device) -> dict:
 
 
 def _trainer_config(config) -> TrainerConfig:
-    """utils.py:_trainer_config for the fields the port has. The extra loss
-    terms map onto their flags, which raise in the trainer (ROADMAP item 3)."""
+    """utils.py:_trainer_config for the fields the port has."""
     lr = config.optimizer.lr
     geo = config.geometry
     prune = config.get("prune", {}) or {}
@@ -69,6 +89,10 @@ def _trainer_config(config) -> TrainerConfig:
         opacity_lr=float(lr.get("opacity", 0.025)),
         scaling_lr=float(lr.get("scaling", 5e-3)),
         quaternion_lr=float(lr.get("quaternion", 1e-3)),
+        exposure_lr_init=float(lr.get("exposure_lr_init", 0.01)),
+        exposure_lr_final=float(lr.get("exposure_lr_final", 0.001)),
+        exposure_lr_delay_steps=int(lr.get("exposure_lr_delay_steps", 0)),
+        exposure_lr_delay_mult=float(lr.get("exposure_lr_delay_mult", 0.0)),
         percent_dense=float(geo.get("percent_dense", 0.01)),
         densify_start_iter=int(geo.get("densify_start_iter", 500)),
         densify_end_iter=int(geo.get("densify_end_iter", 15000)),
@@ -82,10 +106,16 @@ def _trainer_config(config) -> TrainerConfig:
         prune_percent=float(prune.get("prune_percent", 0.5)),
         max_sh_degree=int(config.texture.get("max_sh_degree", 3)),
         use_trained_exposure=bool(config.get("appearance", {}).get("use_trained_exposure", False)),
+        # The reference keys the VastGaussian appearance mask on
+        # geometry.mask (urban3d_admm.yaml); either spelling turns it on.
         use_appearance_mask=bool(
             config.get("appearance", {}).get("use_appearance_mask", False) or geo.get("mask", False)
         ),
+        lambda_mask=float(config.loss.get("lambda_mask", 0.0)),
+        mask_lr=float(lr.get("mask", 1e-3)),
         optimize_camera_poses=bool(lr.get("pose", 0.0)),
+        pose_lr=float(lr.get("pose", 0.0) or 1e-4),
+        opt_pose_start_iter=int(geo.get("opt_pose_start_iter", 3000)),
         white_background=bool(config.dataset.get("apply_mask", False)),
         spatial_lr_scale=float(geo.get("spatial_lr_scale", -1.0)),
         chain_steps=int(config.trainer.get("chain_steps", 1)),
@@ -118,6 +148,11 @@ def create_trainer(config):
         raise NotImplementedError(
             f"neural_field_type={field_type!r}: Scaffold-GS is not ported to dogs_tpu_torch yet "
             "(ROADMAP.md queue 1, item 6)"
+        )
+    if bool(config.dataset.get("multi_blocks", False)):
+        raise NotImplementedError(
+            "dataset.multi_blocks: block-parallel ADMM is not ported to dogs_tpu_torch yet "
+            "(ROADMAP.md queue 1, item 5); set dataset.multi_blocks=false to train the scene on one device"
         )
     device = config.get("device", "cuda")
     cfg, raster_cfg = _trainer_config(config), _raster_config(config)

@@ -7,7 +7,10 @@ Per-scene loop over `dataset.scene`: builds the trainer with
 `dogs_tpu_torch.factory.create_trainer`, resumes when `trainer.resume` or
 `trainer.ckpt_path` is set, trains with the configured cadences, writes a
 final checkpoint and logs the final validation. `device=cpu` runs on the
-CPU (the default is the card).
+CPU (the default is the card). Trains the synthetic scene and COLMAP scenes
+(every shipped gaussian_splatting config; PNG images on a machine without
+PIL) on one device; `dataset.multi_blocks` (block-parallel ADMM) and
+Scaffold-GS raise `NotImplementedError` from the factory.
 """
 
 from __future__ import annotations

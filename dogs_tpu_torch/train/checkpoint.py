@@ -7,11 +7,13 @@ A `dogs_tpu` checkpoint is one compressed npz of flattened pytree leaves
 "/", so a bare `GaussianModelState` stores `.params/.xyz`, ..., `.alive`,
 `.grad_accum`, `.denom`, `.max_radii2d`, and a trainer checkpoint
 (`TrainState`) stores the same keys under `.model/`, the sparse-Adam
-moments under `.opt/.mu/` and `.opt/.nu/`, the per-image exposure and pose
-state and the step. The port writes exactly the leaf keys, shapes and dtypes
-of a JAX `TrainState`, with the inert values of dogs_tpu's
-`train_state_from_model` for the per-image fields it does not train yet, so
-either package resumes from the other's checkpoints.
+moments under `.opt/.mu/` and `.opt/.nu/`, the per-image exposure, the
+step, the appearance mask CNN's parameters and moments under
+`.mask_params/`, `.mask_mu/`, `.mask_nu/` (each leaf keyed by its
+`jax.tree_util` path, `['conv_in']/['w']`, ...; none when the mask is off)
+and the pose deltas with their moments. The port writes exactly the leaf
+keys, shapes and dtypes of a JAX `TrainState`, so either package resumes
+from the other's checkpoints.
 """
 
 from __future__ import annotations
@@ -24,33 +26,33 @@ import numpy as np
 import torch
 
 from dogs_tpu_torch.core.gaussians import PARAM_NAMES, params_from_numpy
+from dogs_tpu_torch.fields.appearance import flatten
 from dogs_tpu_torch.fields.model import GaussianModelState
 from dogs_tpu_torch.train.optim import SparseAdamState
 from dogs_tpu_torch.train.trainer import TrainState
 
 FORMAT_VERSION = 1  # the dogs_tpu checkpoint format written, and the highest read
 _STATS = ("grad_accum", "denom", "max_radii2d")
+_MASK = ("mask_params", "mask_mu", "mask_nu")
+_PER_IMAGE = ("exposure", "exposure_mu", "exposure_nu", "pose_deltas", "pose_mu", "pose_nu")
 
 
 def _leaves(ts: TrainState) -> dict[str, torch.Tensor | np.ndarray]:
     """The leaves of a JAX `TrainState` (dogs_tpu/train/trainer.py:168-189),
-    keyed and ordered as its flattening names them: the state's tensors, and
-    for the per-image fields the port does not train yet the inert values of
-    dogs_tpu's train_state_from_model (identity exposure with zero moments,
-    zero pose deltas, (n_images, ...) each); the step is int32."""
+    keyed and ordered as its flattening names them; the step is int32."""
     model = ts.model
     out = {f".model/.params/.{k}": getattr(model.params, k) for k in PARAM_NAMES}
     out[".model/.alive"] = model.alive
     out.update({f".model/.{k}": getattr(model, k) for k in _STATS})
     for m in ("mu", "nu"):
         out.update({f".opt/.{m}/.{k}": getattr(ts.opt, m)[k] for k in PARAM_NAMES})
-    exposure = np.tile(np.eye(3, 4, dtype=np.float32)[None], (ts.n_images, 1, 1))
-    out[".exposure"] = exposure
-    out[".exposure_mu"] = np.zeros_like(exposure)
-    out[".exposure_nu"] = np.zeros_like(exposure)
+    for k in _PER_IMAGE[:3]:
+        out[f".{k}"] = getattr(ts, k)
     out[".step"] = np.asarray(ts.step, np.int32)
-    for k in ("pose_deltas", "pose_mu", "pose_nu"):
-        out[f".{k}"] = np.zeros((ts.n_images, 6), np.float32)
+    for k in _MASK:
+        out.update({f".{k}/{path}": v for path, v in flatten(getattr(ts, k)).items()})
+    for k in _PER_IMAGE[3:]:
+        out[f".{k}"] = getattr(ts, k)
     return out
 
 
@@ -103,38 +105,50 @@ def load_jax_checkpoint(path: str, device: torch.device | str = "cuda") -> Gauss
     )
 
 
-def _train_state(data, path: str, device) -> TrainState:
+def _mask_tree(data, prefix: str, paths: list[str], device, requires_grad: bool) -> dict:
+    """The nested parameter dictionary of the leaves `<prefix>/<path>`."""
+    tree: dict = {}
+    for path in paths:
+        *parents, name = [part[2:-2] for part in path.split("/")]  # "['conv_in']" -> "conv_in"
+        node = tree
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[name] = torch.tensor(data[f"{prefix}/{path}"].astype(np.float32), device=device,
+                                  requires_grad=requires_grad)
+    return tree
+
+
+def _train_state(data, path: str, device, mask_paths: list[str]) -> TrainState:
     """The port's TrainState from the leaves of a trainer checkpoint (an
-    open npz or a dict of its arrays)."""
+    open npz or a dict of its arrays), with the mask leaves `mask_paths`."""
     missing = [
-        key for key in (".model/.params/.xyz", ".opt/.mu/.xyz", ".opt/.nu/.xyz", ".step")
+        key for key in (".model/.params/.xyz", ".opt/.mu/.xyz", ".opt/.nu/.xyz", ".step", ".exposure",
+                        ".pose_deltas")
         if key not in data
     ]
     if missing:
         raise KeyError(f"checkpoint {path} is not a trainer checkpoint: no {missing}")
-    opt = SparseAdamState(
-        **{
-            m: {
-                k: torch.as_tensor(data[f".opt/.{m}/.{k}"].astype(np.float32), device=device)
-                for k in PARAM_NAMES
-            }
-            for m in ("mu", "nu")
-        }
-    )
-    n_images = data[".exposure"].shape[0] if ".exposure" in data else 1
+
+    def f32(key):
+        return torch.as_tensor(data[key].astype(np.float32), device=device)
+
+    opt = SparseAdamState(**{m: {k: f32(f".opt/.{m}/.{k}") for k in PARAM_NAMES} for m in ("mu", "nu")})
     return TrainState(
         model=_model_state(data, ".model/", device), opt=opt, step=int(data[".step"]),
-        n_images=n_images,
+        **{k: f32(f".{k}") for k in _PER_IMAGE},
+        **{k: _mask_tree(data, f".{k}", mask_paths, device, k == "mask_params") for k in _MASK},
     )
 
 
 def load_jax_train_state(path: str, device: torch.device | str = "cuda") -> TrainState:
     """Load a `dogs_tpu` trainer checkpoint (a saved `TrainState`) as the
-    port's `TrainState`: the model, the sparse-Adam moments and the step.
-    The JAX state's per-image fields (exposure, appearance mask, pose deltas)
-    belong to loss terms the port does not have yet and are not read."""
+    port's `TrainState`: the model, the sparse-Adam moments, the step, the
+    per-image exposure and pose state and, where it holds them, the
+    appearance mask's parameters and moments."""
     with _open(path) as data:
-        return _train_state(data, path, device)
+        prefix = ".mask_params/"
+        mask_paths = [k[len(prefix):] for k in data.files if k.startswith(prefix)]
+        return _train_state(data, path, device, mask_paths)
 
 
 def leaf_shape(path: str, key: str) -> tuple[int, ...]:
@@ -162,7 +176,7 @@ def load_train_state(path: str, template: TrainState) -> tuple[TrainState, dict]
                 f"checkpoint leaf {key} has shape {arrays[key].shape}, template expects "
                 f"{tuple(leaf.shape)}; resize the template (capacity grow/shrink) before loading"
             )
-    state = _train_state(arrays, path, template.model.params.xyz.device)
+    state = _train_state(arrays, path, template.model.params.xyz.device, list(flatten(template.mask_params)))
     return state, _meta(arrays).get("extra", {})
 
 

@@ -1,7 +1,8 @@
 """CUDA lane: the hand-written kernels (blend forward, blend backward,
 segment sum) against their plain PyTorch versions on the card, the
 LightGaussian importance render through them, and the densify surgery,
-LPIPS and the windowed KNN on the card against the CPU. Every test here needs a CUDA
+LPIPS, the windowed KNN and the appearance mask CNN on the card against the
+CPU. Every test here needs a CUDA
 device and skips without one. The file imports no JAX, so it runs on a machine with the card alone:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
@@ -18,6 +19,7 @@ from dogs_tpu_torch.data import synthetic
 from dogs_tpu_torch.core.gaussians import PARAM_NAMES
 from dogs_tpu_torch.core.knn import mean_knn_dist_sq, morton_codes
 from dogs_tpu_torch.eval.metrics import lpips
+from dogs_tpu_torch.fields import appearance
 from dogs_tpu_torch.fields import lightgaussian
 from dogs_tpu_torch.fields import model as tmodel
 from dogs_tpu_torch.raster import blend, reduce
@@ -326,3 +328,29 @@ def test_windowed_knn_on_card_matches_cpu(cuda):
     assert torch.equal(morton_codes(pts.to(cuda), valid.to(cuda)).cpu(), codes)
     got = mean_knn_dist_sq(pts.to(cuda), valid.to(cuda)).cpu()
     torch.testing.assert_close(got, mean_knn_dist_sq(pts, valid), rtol=1e-6, atol=0)
+
+
+def test_appearance_mask_on_card_matches_cpu_with_tf32_off(cuda):
+    """The mask CNN's forward (1e-5 of the max) and its parameter and input
+    gradients (2e-3 of each leaf's max) on the card against the CPU, the
+    convolutions and their backward in exact f32 (`exact_f32`), at 96x80,
+    and the settings restored after."""
+    arrays = appearance.init_appearance_arrays(4)
+    g = torch.Generator().manual_seed(0)
+    img, cot = torch.rand((80, 96, 3), generator=g), torch.randn((80, 96, 3), generator=g)
+    out = {}
+    for dev in ("cpu", cuda):
+        params = appearance.appearance_params_from_numpy(arrays, dev)
+        x = img.to(dev).requires_grad_(True)
+        before = (torch.backends.cudnn.enabled, torch.backends.cudnn.allow_tf32,
+                  torch.backends.cuda.matmul.allow_tf32)
+        with appearance.exact_f32():
+            mask = appearance.apply_appearance(params, x, 2)
+            grads = torch.autograd.grad((mask * cot.to(dev)).sum(), list(appearance.flatten(params).values()) + [x])
+        assert (torch.backends.cudnn.enabled, torch.backends.cudnn.allow_tf32,
+                torch.backends.cuda.matmul.allow_tf32) == before
+        out[str(dev)] = [mask.detach().cpu()] + [gr.cpu() for gr in grads]
+    (cpu_mask, *cpu_grads), (card_mask, *card_grads) = out["cpu"], out[str(cuda)]
+    torch.testing.assert_close(card_mask, cpu_mask, rtol=0, atol=1e-5 * float(cpu_mask.abs().max()))
+    for a, b in zip(card_grads, cpu_grads):
+        torch.testing.assert_close(a, b, rtol=0, atol=GRAD_ATOL * float(b.abs().max()))

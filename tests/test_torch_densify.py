@@ -4,6 +4,7 @@ resolver and the factory, checkpoints in both directions, a bit-identical
 resume and the train CLI. JAX runs on the CPU; the same numpy inputs go to
 both packages, and the split noise is JAX's draw fed to the port."""
 
+import dataclasses
 import json
 from pathlib import Path
 from types import SimpleNamespace
@@ -204,11 +205,11 @@ def train_states(n_images=3):
     nu = {k: rng.rand(*a.shape).astype(np.float32) for k, a in params.items()}
     jts = jtrainer.train_state_from_model(jax_state(params, alive, stats), n_images, jtrainer.TrainerConfig())
     jts = jts.replace(opt=joptim.SparseAdamState(mu=jax_params(mu), nu=jax_params(nu)), step=jnp.int32(5))
-    tts = ttrainer.TrainState(
-        model=torch_state(params, alive, stats),
+    tts = dataclasses.replace(
+        ttrainer.train_state_from_model(torch_state(params, alive, stats), n_images, ttrainer.TrainerConfig()),
         opt=SparseAdamState(mu={k: torch.from_numpy(v.copy()) for k, v in mu.items()},
                             nu={k: torch.from_numpy(v.copy()) for k, v in nu.items()}),
-        step=5, n_images=n_images,
+        step=5,
     )
     return jts, tts
 
@@ -276,11 +277,18 @@ def test_config_and_factory_match_dogs_tpu(path):
 
 
 def test_factory_raises_for_unported_fields_and_datasets():
+    """Scaffold-GS and block-parallel ADMM scenes raise; a COLMAP scene
+    (dataset.name other than synthetic) is built by load_scene, so a missing
+    scene directory is a missing file."""
     scaffold = tconfig.load_config(str(REPO / "config" / "scaffold_gs" / "synthetic_smoke.yaml"))
     with pytest.raises(NotImplementedError, match="item 6"):
         factory.create_trainer(scaffold)
-    real = tconfig.load_config(str(REPO / "config" / "gaussian_splatting" / "mipnerf360.yaml"))
-    with pytest.raises(NotImplementedError, match="item 4"):
+    admm = tconfig.load_config(str(REPO / "config" / "gaussian_splatting" / "urban3d_admm.yaml"))
+    with pytest.raises(NotImplementedError, match="item 5"):
+        factory.create_trainer(admm)
+    real = tconfig.load_config(str(REPO / "config" / "gaussian_splatting" / "mipnerf360.yaml"),
+                               cli_overrides=[f"dataset.root_dir={REPO / 'no_such_dir'}", "device=cpu"])
+    with pytest.raises(FileNotFoundError):
         factory.create_trainer(real)
 
 
@@ -337,7 +345,8 @@ def port_state_from_arrays(arrays: dict, step: int, n_images: int) -> ttrainer.T
                         {k: arrays[f".model/.{k}"] for k in STATS})
     opt = SparseAdamState(**{m: {k: torch.from_numpy(arrays[f".opt/.{m}/.{k}"].copy()) for k in NAMES}
                              for m in ("mu", "nu")})
-    return ttrainer.TrainState(model=model, opt=opt, step=step, n_images=n_images)
+    return dataclasses.replace(ttrainer.train_state_from_model(model, n_images, ttrainer.TrainerConfig()),
+                               opt=opt, step=step)
 
 
 def test_port_checkpoint_loads_in_the_jax_trainer(tmp_path):

@@ -30,13 +30,15 @@ RING = dict(n_cams=3, radius=4.0, width=72, height=56, focal=64.0)
 
 def models(n=96, seed=0, dead=0.25):
     """The same model in both packages: a random scene with a share of
-    dead slots."""
+    dead slots. The port's alive mask is its own copy: the port prunes in
+    place, and on the CPU `jnp.asarray` may alias the numpy buffer that
+    `torch.from_numpy` would share."""
     arrays = synthetic.random_scene_arrays(n=n, seed=seed)
     alive = np.random.RandomState(seed + 1).rand(n) > dead
     zeros = np.zeros(n, np.float32)
     jm = JModelState(params=jax_params(arrays), alive=jnp.asarray(alive), grad_accum=jnp.asarray(zeros),
                      denom=jnp.asarray(zeros), max_radii2d=jnp.asarray(zeros))
-    tm = GaussianModelState(params_from_numpy(arrays, "cpu"), torch.from_numpy(alive), *(
+    tm = GaussianModelState(params_from_numpy(arrays, "cpu"), torch.from_numpy(alive.copy()), *(
         torch.zeros(n) for _ in range(3)))
     return jm, tm, alive
 

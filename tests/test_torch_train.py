@@ -5,6 +5,8 @@ events and an opacity reset, and loading a JAX trainer checkpoint. JAX runs
 on the CPU with the XLA raster path; the same numpy inputs go to both
 packages."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -257,10 +259,12 @@ def test_train_step_matches_jax_from_warm_state(scenes):
     jstep = jtrainer.make_train_step(jtrainer.TrainerConfig(**cfg), J_RASTER, lr_scale, deg, bg)
     jnew, jm = jstep(jstate, js.cameras[0], js.images[0])
 
-    tstate = ttrainer.TrainState(
-        model=tmodel.GaussianModelState(
-            params=tgs.params_from_numpy(params, "cpu"), alive=torch.from_numpy(alive),
-            **{k: torch.from_numpy(v.copy()) for k, v in stats.items()}),
+    tstate = dataclasses.replace(
+        ttrainer.train_state_from_model(
+            tmodel.GaussianModelState(
+                params=tgs.params_from_numpy(params, "cpu"), alive=torch.from_numpy(alive),
+                **{k: torch.from_numpy(v.copy()) for k, v in stats.items()}),
+            8, ttrainer.TrainerConfig(**cfg)),
         opt=toptim.SparseAdamState(mu={k: torch.from_numpy(v.copy()) for k, v in mu.items()},
                                    nu={k: torch.from_numpy(v.copy()) for k, v in nu.items()}),
         step=step0,
@@ -463,11 +467,7 @@ def test_log_window_reports_the_max_bin_valid(pruned):
     assert got != [per_step[2], per_step[5]]  # the windows' last steps are not their maxima
 
 
-@pytest.mark.parametrize("flag", ["use_trained_exposure", "use_appearance_mask", "optimize_camera_poses"])
-def test_unported_loss_terms_raise(flag):
-    cfg = ttrainer.TrainerConfig(**{flag: True})
-    with pytest.raises(NotImplementedError, match=r"item 3\)"):
-        ttrainer.make_train_step(cfg, T_RASTER, 1.0, 0, (0.0, 0.0, 0.0))
+def test_admm_penalty_raises():
     with pytest.raises(NotImplementedError, match=r"item 5\)"):
         ttrainer.make_train_step(ttrainer.TrainerConfig(), T_RASTER, 1.0, 0, (0.0, 0.0, 0.0), admm=True)
 
@@ -477,7 +477,7 @@ def test_load_jax_train_state(tmp_path, trained):
     path = tmp_path / "ckpt.npz"
     save_pytree(str(path), jt.state, {"step": 30})
     state = load_jax_train_state(str(path), "cpu")
-    assert state.step == 30 and state.n_images == 8
+    assert state.step == 30 and state.exposure.shape == (8, 3, 4) and state.mask_params == {}
     for k in NAMES:
         np.testing.assert_array_equal(np_(getattr(state.model.params, k)),
                                       np.asarray(getattr(jt.state.model.params, k)))
