@@ -102,6 +102,27 @@ scene through the data slice and the per-image loss terms), in phases:
               on it in its own process (val PSNR within 1e-4 dB of the final
               validate()), then the same 40 steps with geometry.mask=false
               (its kernels held against plain at its step 41's inputs)
+  6g. ADMM    urban3d_admm.yaml's 2x2 blocks on the same scene: python -m
+              dogs_tpu_torch.preprocess (four cameras and ~245k points a
+              block), then train_admm.train_scene in this process for 60
+              master steps (four block steps each): densify at 10 and 20,
+              the in-phase prune at 20, the fusion with the post-merge prune
+              over the 16 train cameras at 30, consensus rounds at 40, 50
+              and 60. K1, K2, K3 once a block step and once a camera of each
+              prune, K1 once for the val camera; in every block the loss
+              falls in the block phase and the L1 term in the ADMM phase
+              (its loss carries the penalty, which jumps at each round);
+              every overflow logged; the fused count is the crops' sum less
+              the pruned; the residuals finite and rho as adapt_rho gives
+              it; at the first ADMM step's inputs, outside the counts, block
+              0's kernels and step gradients against plain; ms per master
+              step in each phase, per consensus round and per fusion, peak
+              memory; the checkpoint resumed in a fresh trainer bit for bit
+              and fused by load_fused_from_checkpoint equal to the global
+              model; python -m dogs_tpu_torch.eval on it in its own process
+              (val PSNR within 1e-4 dB of the final validate()); 4 master
+              steps from the post-fusion state at rho x 50 end closer to
+              consensus (primal xyz) than 4 at rho = 0
   7. report   per-kernel JSON line (time, plain time, bound, share, library
               call time), then the device JSON line (last line)
 
@@ -112,6 +133,7 @@ Any failed phase raises, so the exit code is non-zero. Imports no JAX.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import logging
@@ -154,6 +176,15 @@ SCENE_IMAGES, SCENE_STEPS = 17, 40
 # gauge) trains.
 SCENE_NAME = "rubble"
 SCENE_EXPNAME = f"gs_novel_view_synthesis_urban3d_{SCENE_NAME}"  # the CLIs' name for it
+# urban3d_admm.yaml's 80k steps cut to 60 master steps with its events kept:
+# densify at 10 and 20, the in-phase prune at 20, the fusion at 30, three
+# consensus rounds.
+ADMM_STEPS = 60
+ADMM_CUTS = [f"trainer.max_iterations={ADMM_STEPS}", "geometry.densify_start_iter=5",
+             "geometry.densification_interval=10", "geometry.densify_end_iter=30",
+             "trainer.admm.consensus_interval=10", "prune.iterations=[20]", "trainer.n_validation=0",
+             "trainer.n_checkpoint=30"]
+RHO_SCALE, RHO_STEPS = 50.0, 4
 
 
 class SmokeFailure(RuntimeError):
@@ -202,15 +233,17 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; nothing was run", file=sys.stderr)
         return 1
 
-    from dogs_tpu_torch import factory, kernels
+    from dogs_tpu_torch import factory, kernels, train_admm
     from dogs_tpu_torch.core import look_at_camera, params_from_numpy
-    from dogs_tpu_torch.core.gaussians import PARAM_NAMES
+    from dogs_tpu_torch.core.gaussians import PARAM_NAMES, GaussianParams
     from dogs_tpu_torch.data import colmap, synthetic
     from dogs_tpu_torch.data import dataset as tdataset
     from dogs_tpu_torch.eval.evaluator import EvalConfig, GaussianSplatEvaluator
     from dogs_tpu_torch.fields import appearance, lightgaussian
     from dogs_tpu_torch.fields.io import load_gaussian_ply
     from dogs_tpu_torch.fields.model import GaussianModelState
+    from dogs_tpu_torch.parallel import admm as admm_mod
+    from dogs_tpu_torch.parallel import master as master_mod
     from dogs_tpu_torch.raster import blend, reduce
     from dogs_tpu_torch.raster.binning import build_tile_bins
     from dogs_tpu_torch.raster.projection import project_gaussians
@@ -1226,6 +1259,219 @@ def main() -> int:
                     rcfg=nomask_trainer.raster_cfg, tag="real scene, no mask")
         nomask_trainer.images.close()
         del nomask_trainer
+
+        # ---- 6g. block-parallel ADMM (main path 9): four blocks of the scene --
+        # urban3d_admm.yaml's 2x2 blocks on the same written scene (its
+        # minify and undistort caches): the preprocess CLI, then
+        # train_admm.train_scene in this process, each master step timed,
+        # the consensus rounds and the fusion between CUDA events; at the
+        # fusion, block 0's kernels and step gradients against plain at the
+        # first ADMM step's inputs and a host copy of the post-fusion state
+        # for the rho check after the run (both outside the counts).
+        admm_args = [f"dataset.root_dir={os.path.join(tmp, 'data')}", "dataset.factor=2",
+                     f"root_dir={os.path.join(tmp, 'out')}", "trainer.enable_tensorboard=false", *ADMM_CUTS]
+        log, preprocess_s = run_cli("dogs_tpu_torch.preprocess", "--scene", SCENE_NAME, *admm_args,
+                                    config=SCENE_CONFIG)
+        block_sizes = [tuple(int(v) for v in m) for m in re.findall(r"block (\d+): (\d+) cameras, (\d+) points", log)]
+        check(len(block_sizes) == 4 and all(c > 0 for _, c, _ in block_sizes)
+              and sum(c for _, c, _ in block_sizes) == SCENE_IMAGES - 1,
+              f"admm: the preprocess CLI wrote blocks {block_sizes}, expected 4 with all 16 train cameras")
+        aconfig = load_config(os.path.join(root, SCENE_CONFIG), cli_overrides=admm_args)
+        aconfig.dataset.scene = SCENE_NAME
+        aconfig.expname = train_admm.experiment_name(aconfig, SCENE_NAME)
+
+        def tree_to(obj, device):
+            """A copy of a block state's tensors on `device` (leaves keep
+            requires_grad)."""
+            if torch.is_tensor(obj):
+                return obj.detach().to(device, copy=True).requires_grad_(obj.requires_grad)
+            if isinstance(obj, dict):
+                return {k: tree_to(v, device) for k, v in obj.items()}
+            if isinstance(obj, list):
+                return [tree_to(v, device) for v in obj]
+            if isinstance(obj, GaussianParams):
+                return GaussianParams(**{k: tree_to(getattr(obj, k), device).detach() for k in PARAM_NAMES})
+            if dataclasses.is_dataclass(obj):
+                return dataclasses.replace(obj, **{f.name: tree_to(getattr(obj, f.name), device)
+                                                   for f in dataclasses.fields(obj)})
+            return obj
+
+        MT = master_mod.MasterTrainer
+        originals_6g = (MT.train_step, MT.consensus, MT.fuse_and_enable_admm, MT._densify_blocks)
+        alog: dict = dict(steps=[], rounds=[], events=[])
+        records_6g: list[logging.LogRecord] = []
+        catcher_6g = logging.Handler(logging.INFO)
+        catcher_6g.emit = records_6g.append
+        master_log = logging.getLogger(master_mod.__name__)
+        level_6g = master_log.level
+
+        def admm_step(self):
+            alog["master"] = self
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = originals_6g[0](self)
+            torch.cuda.synchronize()
+            alog["steps"].append((self.step, self.admm_enabled, (time.perf_counter() - t0) * 1e3,
+                                  [torch.stack([m["loss"], m["l1"]]) for m in out]))
+            return out
+
+        def admm_consensus(self):
+            rho_before, e0 = dict(self.rho), event_mark()
+            primal, dual = originals_6g[1](self)
+            alog["rounds"].append(dict(step=self.step, rho_before=rho_before, primal=primal, dual=dual,
+                                       rho_after=dict(self.rho), events=(e0, event_mark())))
+            return primal, dual
+
+        def admm_fusion(self):
+            first, block_capacity = len(records_6g), self.blocks[0].train.model.capacity
+            torch.cuda.synchronize()
+            t0, e0 = time.perf_counter(), event_mark()
+            originals_6g[2](self)
+            e1 = event_mark()
+            torch.cuda.synchronize()
+            fusion = dict(s=time.perf_counter() - t0, events=(e0, e1), step=self.step, n_global=self.n_global,
+                          block_capacity=block_capacity,
+                          msgs=[r.getMessage() for r in records_6g[first:]],
+                          capacity=self.blocks[0].train.model.capacity,
+                          sizes=[int(b.train.model.num_alive) for b in self.blocks])
+            order = self._cam_order[0]
+            if not order:  # the permutation block 0 draws next
+                peek = np.random.RandomState()
+                peek.set_state(self.rng.get_state())
+                order = [int(i) for i in peek.permutation(len(self.block_cameras[0]))]
+            blk = self.blocks[0]
+            fusion["peak_before"] = path_parity(
+                f"block 0 at the first ADMM step's inputs (step {self.step + 1})", blk.train.model,
+                self.block_cameras[0][order[-1]], self._gt(0, order[-1]), self.active_sh_degree(self.step + 1),
+                rcfg=self.raster_cfg, tag="admm")
+            fusion["snapshot"] = (tree_to(self.blocks, "cpu"), copy.deepcopy(self.rng),
+                                  [list(o) for o in self._cam_order], dict(self.rho))
+            alog["fusion"] = fusion
+
+        def admm_densify(self):
+            originals_6g[3](self)
+            alog["events"].append((self.step, list(self._last_overflow)))
+
+        MT.train_step, MT.consensus, MT.fuse_and_enable_admm, MT._densify_blocks = (
+            admm_step, admm_consensus, admm_fusion, admm_densify)
+        master_log.addHandler(catcher_6g)
+        master_log.setLevel(logging.INFO)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        try:
+            t0 = time.perf_counter()
+            admm_val = train_admm.train_scene(aconfig, SCENE_NAME)
+            torch.cuda.synchronize()
+            admm_s = time.perf_counter() - t0
+            admm_counts = add_counts("admm", list(counted))
+            admm_peak_mb = max(torch.cuda.max_memory_allocated(dev), alog["fusion"]["peak_before"]) / 2**20
+        finally:
+            MT.train_step, MT.consensus, MT.fuse_and_enable_admm, MT._densify_blocks = originals_6g
+            master_log.removeHandler(catcher_6g)
+            master_log.setLevel(level_6g)
+        am, fusion, rounds = alog["master"], alog["fusion"], alog["rounds"]
+        n_block_cams = sum(len(c) for c in am.block_cameras)
+        steps_expected = 4 * ADMM_STEPS + 2 * n_block_cams  # block steps, the two prunes' importance renders
+        check(admm_counts == {"blend_forward": steps_expected + 1, "blend_backward": steps_expected,
+                              "sorted_segment_sum": steps_expected},
+              f"admm: launches {admm_counts}, expected {steps_expected} (+1 K1 for the val camera)")
+        check([s for s, *_ in alog["steps"]] == list(range(1, ADMM_STEPS + 1)), "admm: master steps out of order")
+        check(fusion["step"] == 30 and [r["step"] for r in rounds] == [40, 50, 60] and am.admm_enabled,
+              f"admm: fusion at {fusion['step']}, rounds at {[r['step'] for r in rounds]}")
+        block_losses = torch.stack([torch.stack([v.to(dev) for v in ls]) for *_, ls in alog["steps"]]).cpu()
+        check(bool(torch.isfinite(block_losses).all()), "admm: non-finite block loss")
+        # Within each phase: the fusion restarts every block from the cropped,
+        # pruned fused model with a fresh mask CNN. In the ADMM phase the loss
+        # carries the penalty, which jumps after each round as u moves by
+        # 1.5 (x - z), so there the photometric term (l1) is held to falling.
+        half = fusion["step"]
+        phase_losses = [(block_losses[:8, :, 0].mean(0).tolist(), block_losses[half - 8:half, :, 0].mean(0).tolist()),
+                        (block_losses[half:half + 8, :, 1].mean(0).tolist(), block_losses[-8:, :, 1].mean(0).tolist())]
+        admm_loss = (block_losses[half:half + 8, :, 0].mean(0).tolist(), block_losses[-8:, :, 0].mean(0).tolist())
+        for name, (first, last) in zip(("block phase loss", "ADMM phase l1"), phase_losses):
+            check(all(b < a for a, b in zip(first, last)),
+                  f"admm: {name} did not fall in every block: first 8 means {first}, last 8 {last}")
+        inphase = re.search(r"lightgaussian prune @20 \(blocks\): (\d+) -> (\d+)",
+                            "\n".join(r.getMessage() for r in records_6g))
+        check(inphase is not None, "admm: no in-phase prune at step 20")
+        overflows = [int(v) for _, ovs in alog["events"] for v in ovs]
+        logged = sum("densify overflow" in r.getMessage() for r in records_6g)
+        check([s for s, _ in alog["events"]] == [10, 20] and logged == sum(v > 0 for v in overflows),
+              f"admm: events {[s for s, _ in alog['events']]}, {sum(v > 0 for v in overflows)} overflows, "
+              f"{logged} logged")
+        crop_lines = re.findall(r"fusion crop block \d+: (\d+) alive -> (\d+) inside", "\n".join(fusion["msgs"]))
+        alive_before, crops = [int(a) for a, _ in crop_lines], [int(b) for _, b in crop_lines]
+        merged = re.search(r"post-merge prune: (\d+) -> (\d+) gaussians", "\n".join(fusion["msgs"]))
+        check(len(crops) == 4 and merged is not None and int(merged.group(1)) == sum(crops)
+              and int(merged.group(2)) == fusion["n_global"],
+              f"admm: fused {fusion['n_global']} from crops {crops} and the prune {merged and merged.groups()}")
+        for r in rounds:
+            check(all(np.isfinite(float(r[w][k])) for w in ("primal", "dual") for k in PARAM_NAMES),
+                  f"admm: non-finite residuals at step {r['step']}")
+            want = admm_mod.adapt_rho(r["rho_before"], r["primal"], r["dual"], am.admm_cfg)
+            check(all(np.float32(r["rho_after"][k]).view(np.uint32) == np.float32(want[k]).view(np.uint32)
+                      for k in PARAM_NAMES), f"admm: rho at step {r['step']} is not adapt_rho's")
+        check(np.isfinite(admm_val["val_psnr"]), f"admm: final validate {admm_val}")
+
+        # The final checkpoint: resumed in a fresh trainer bit for bit, and
+        # fused by load_fused_from_checkpoint equal to the global model.
+        run_dir = os.path.join(tmp, "out", aconfig.expname)
+        ckpt = CheckpointManager(os.path.join(run_dir, "model")).latest_path()
+        ckpt_mb = os.path.getsize(ckpt) / 2**20
+        saved_counts = {fn: fn.launches for fn in counted}
+        t0 = time.perf_counter()
+        resumed = master_mod.MasterTrainer.from_manifests(
+            scene_root, 2, 2, trainer_cfg=factory._trainer_config(aconfig),
+            raster_cfg=factory._raster_config(aconfig), admm_cfg=train_admm.admm_config(aconfig),
+            seed=int(aconfig.get("seed", 42)), device="cuda")
+        check(resumed.load_checkpoint(CheckpointManager(os.path.join(run_dir, "model"))) == ADMM_STEPS,
+              "admm: the checkpoint did not resume at the last step")
+        resume_s = time.perf_counter() - t0
+        a, b = am.state_arrays(), resumed.state_arrays()
+        check(sorted(a) == sorted(b) and all(np.array_equal(a[k], b[k]) and a[k].dtype == b[k].dtype for k in a)
+              and resumed.rho == am.rho and resumed._cam_order == am._cam_order and resumed.n_global == am.n_global,
+              "admm: the resumed trainer differs from the run")
+        n_ckpt_leaves = len(a)
+        resumed.close()
+        del resumed, a, b
+        t0 = time.perf_counter()
+        fused_ckpt = master_mod.load_fused_from_checkpoint(ckpt, am.partition, dev)
+        fuse_ckpt_s = time.perf_counter() - t0
+        gm = am.global_model()
+        check(torch.equal(fused_ckpt.alive, gm.alive) and all(
+            torch.equal(getattr(fused_ckpt.params, k), getattr(gm.params, k)) for k in PARAM_NAMES),
+            "admm: load_fused_from_checkpoint differs from the global model")
+        n_fused_final = int(gm.num_alive)
+        del fused_ckpt, gm
+        log, admm_eval_s = run_cli("dogs_tpu_torch.eval", "--scene", SCENE_NAME, *admm_args, config=SCENE_CONFIG)
+        with open(os.path.join(run_dir, "eval", "val", "metrics.json")) as f:
+            admm_eval = json.load(f)["mean"]
+        check(abs(admm_eval["psnr"] - admm_val["val_psnr"]) <= 1e-4,
+              f"admm: eval CLI val PSNR {admm_eval['psnr']} vs the final validate() {admm_val['val_psnr']}")
+
+        # rho pulls the blocks together: from the post-fusion state, RHO_STEPS
+        # master steps at rho x RHO_SCALE against rho = 0 (outside the counts).
+        blocks0, rng0, order0, rho0 = fusion["snapshot"]
+
+        def primal_after(scale: float) -> float:
+            am.blocks, am.rng, am._cam_order = tree_to(blocks0, dev), copy.deepcopy(rng0), [list(o) for o in order0]
+            am.step = fusion["step"]
+            am.set_rho({k: np.float32(v * scale) for k, v in rho0.items()})
+            for _ in range(RHO_STEPS):
+                am.train_step()
+            return float(admm_mod.consensus_round(am.blocks, am.n_global, am._rho_dev[0], am.admm_cfg)[4]["xyz"])
+
+        rho_tied, rho_free = primal_after(RHO_SCALE), primal_after(0.0)
+        for fn, c in saved_counts.items():
+            fn.launches = c
+        check(rho_tied < rho_free, f"admm: primal xyz at rho x {RHO_SCALE} {rho_tied:.4e} not below rho = 0's "
+              f"{rho_free:.4e}")
+        phase_ms = {on: [ms for _, admm_on, ms, _ in alog["steps"] if admm_on == on] for on in (False, True)}
+        admm_frame = f"{am.block_cameras[0][0].width}x{am.block_cameras[0][0].height}"
+        round_ms = [r["events"][0].elapsed_time(r["events"][1]) for r in rounds]
+        fusion_ms = fusion["events"][0].elapsed_time(fusion["events"][1])
+        del am, blocks0, alog, fusion["snapshot"]
     print(f"[real scene] ({smi}) wrote {SCENE_IMAGES} images of 2304x1728 (PNG) and a COLMAP model of {n:,} points "
           f"in {write_s:.2f} s; scene load: COLMAP read {colmap_s:.3f} s, minify x2 {minify_s:.2f} s, undistort "
           f"cache {undistort_s:.2f} s; create_trainer from the caches {build_s:.2f} s (no mask {nomask_build_s:.2f} s)")
@@ -1248,6 +1494,33 @@ def main() -> int:
           f"{errors0[0]:.5f} -> {errors40[0]:.5f}, pose delta {errors0[1]:.3e} -> {errors40[1]:.3e} (step 0 -> "
           f"{SCENE_STEPS}); checkpoint with {n_mask_leaves} mask leaves reloaded bit for bit; eval CLI "
           f"{scene_eval_s:.1f} s: val psnr {scene_eval['psnr']:.6f} (final validate() {val40:.6f})")
+
+    print(f"[admm] ({smi}) preprocess CLI {preprocess_s:.1f} s, blocks (cameras, points): "
+          + ", ".join(f"{k}: ({c}, {p:,})" for k, c, p in block_sizes))
+    print(f"[admm] ({smi}) train_scene {admm_s:.1f} s for {ADMM_STEPS} master steps of 4 block steps at {admm_frame}: ms "
+          f"per master step median {np.median(phase_ms[False]):.2f} in the block phase (steps 1-30), "
+          f"{np.median(phase_ms[True]):.2f} in the ADMM phase (31-60); per block, mean of each phase's first 8 -> "
+          f"last 8 steps: " + "; ".join(f"{name} " + ", ".join(f"{a:.5f} -> {b:.5f}" for a, b in zip(*pl))
+                                        for name, pl in zip(("block phase loss", "ADMM phase l1",
+                                                             "ADMM phase loss with the penalty"),
+                                                            phase_losses + [admm_loss]))
+          + f"; peak memory {admm_peak_mb:.0f} MiB")
+    print(f"[admm] ({smi}) densify at steps 10 and 20, overflow per block {overflows} ({logged} logged); in-phase "
+          f"prune at 20: {int(inphase.group(1)):,} -> {int(inphase.group(2)):,} alive in all blocks; fusion at "
+          f"step 30: blocks of capacity {fusion['block_capacity']:,} with {alive_before} alive, crops {crops} = "
+          f"{sum(crops):,} -> post-merge prune -> {fusion['n_global']:,} global Gaussians, "
+          f"blocks of {fusion['sizes']} at capacity {fusion['capacity']:,}; fusion {fusion_ms:.1f} ms between CUDA "
+          f"events ({fusion['s']:.2f} s host)")
+    print(f"[admm] ({smi}) consensus rounds at steps 40/50/60: "
+          + "; ".join(f"{ms:.2f} ms, primal xyz {float(r['primal']['xyz']):.4e} (opacity "
+                      f"{float(r['primal']['logit_opacity']):.4e}), dual xyz {float(r['dual']['xyz']):.4e}, "
+                      f"rho xyz {float(r['rho_before']['xyz']):.4e} -> {float(r['rho_after']['xyz']):.4e}"
+                      for ms, r in zip(round_ms, rounds)))
+    print(f"[admm] ({smi}) final val psnr {admm_val['val_psnr']:.6f} ({n_fused_final:,} fused Gaussians); "
+          f"checkpoint {ckpt_mb:.0f} MiB, {n_ckpt_leaves} leaves, resumed in a fresh trainer bit for bit "
+          f"({resume_s:.1f} s) and fused equal to the global model ({fuse_ckpt_s:.1f} s); eval CLI "
+          f"{admm_eval_s:.1f} s: val psnr {admm_eval['psnr']:.6f}; primal xyz after {RHO_STEPS} steps from the "
+          f"fusion at rho x {RHO_SCALE:g} {rho_tied:.4e}, at rho = 0 {rho_free:.4e}")
 
     # ---- 7. report ---------------------------------------------------------
     sources = {

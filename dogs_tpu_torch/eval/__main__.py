@@ -11,8 +11,11 @@ COLMAP point cloud to <root_dir>/<expname>/export, and renders the spheric
 test trajectory (`eval.n_test_poses` frames at `eval.test_radius`) to
 eval/test. `device=cpu` runs on the CPU (the default is the card). Works
 on the synthetic scene and on COLMAP scenes (PNG images on a machine
-without PIL). Block-parallel ADMM runs (`dataset.multi_blocks`) and
-Scaffold-GS raise `NotImplementedError` from the factory.
+without PIL). A block-parallel ADMM run (`dataset.multi_blocks`, trained by
+`python -m dogs_tpu_torch.train_admm`) is scored by `evaluate_admm`: the
+fused model rebuilt from its block checkpoint on one device, the val split,
+metrics.json and the exports, as eval.py's evaluate_admm does (no test
+trajectory). Scaffold-GS raises `NotImplementedError` from the factory.
 """
 
 from __future__ import annotations
@@ -23,29 +26,61 @@ import os
 import sys
 
 from dogs_tpu_torch.eval.evaluator import EvalConfig, GaussianSplatEvaluator
-from dogs_tpu_torch.factory import create_trainer
+from dogs_tpu_torch.factory import _raster_config, create_trainer
+from dogs_tpu_torch.parallel.master import load_fused_from_checkpoint, load_manifest_partition
+from dogs_tpu_torch.train.checkpoint import CheckpointManager
+from dogs_tpu_torch.train_admm import load_val_split
 from dogs_tpu_torch.utils.config import config_parser, load_config
 
 logger = logging.getLogger("dogs_tpu_torch.eval")
 
 
-def create_evaluator(config, trainer) -> GaussianSplatEvaluator:
-    """The evaluator of a trained model, configured as eval.py configures
-    it: output under <root_dir>/<expname>/eval, color correction from
+def _eval_config(config) -> EvalConfig:
+    """Output under <root_dir>/<expname>/eval, color correction from
     `eval.color_correct` (default: the val split only), all SH degrees."""
     out_root = os.path.join(config.get("root_dir", "out"), config.get("expname", "exp"))
     cc = config.get("eval", {}).get("color_correct", None)
-    cfg = EvalConfig(
+    return EvalConfig(
         output_dir=os.path.join(out_root, "eval"),
         apply_color_correction=None if cc is None else bool(cc),
         active_sh_degree=int(config.texture.get("max_sh_degree", 3)),
     )
-    return GaussianSplatEvaluator(trainer.state.model, trainer.raster_cfg, cfg)
+
+
+def create_evaluator(config, trainer) -> GaussianSplatEvaluator:
+    """The evaluator of a trained model, configured as eval.py configures it."""
+    return GaussianSplatEvaluator(trainer.state.model, trainer.raster_cfg, _eval_config(config))
+
+
+def evaluate_admm(config) -> dict:
+    """Evaluate a block-parallel ADMM run (eval.py:85-127): the fused global
+    model rebuilt from the run's block checkpoint (trainer.ckpt_path, else
+    the latest) on one device, scored on the val split and exported. Returns
+    the val metrics ({} when there is no checkpoint)."""
+    device = config.get("device", "cuda")
+    scene = config.dataset.scene
+    ds = config.dataset
+    _, partition = load_manifest_partition(os.path.join(ds.root_dir, scene), int(ds.get("mx", 2)),
+                                           int(ds.get("my", 2)))
+    out_root = os.path.join(config.get("root_dir", "out"), config.get("expname", "exp"))
+    ckpt = config.trainer.get("ckpt_path", "") or CheckpointManager(os.path.join(out_root, "model")).latest_path()
+    if not ckpt:
+        logger.warning("no ADMM checkpoint found for %s", config.expname)
+        return {}
+    model = load_fused_from_checkpoint(ckpt, partition, device)
+    logger.info("fused model: %d gaussians from %s", int(model.num_alive), ckpt)
+    evaluator = GaussianSplatEvaluator(model, _raster_config(config), _eval_config(config))
+    result = evaluator.eval(*load_val_split(config, scene, device), split="val")
+    evaluator.export(os.path.join(out_root, "export"))
+    logger.info("val mean: %s", result["mean"])
+    return result
 
 
 def evaluate(config) -> dict:
     """Evaluate, export and render the trajectory of one experiment;
     returns the val metrics."""
+    if bool(config.dataset.get("multi_blocks", False)):
+        return evaluate_admm(config)
     trainer, ckpt_manager, writer = create_trainer(config)
     if writer is not None:
         writer.close()

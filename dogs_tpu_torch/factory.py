@@ -5,8 +5,9 @@ tensorboard_writer) from a resolved config (utils/config.py). The port
 supports `neural_field_type: gs` on the synthetic scene and on COLMAP scenes
 (every other `dataset.name`: data/dataset.py `load_scene` under
 <dataset.root_dir>/<dataset.scene>, the train split streamed through a
-`LazyImageList`); Scaffold-GS and block-parallel ADMM
-(`dataset.multi_blocks`) raise `NotImplementedError`. The config key
+`LazyImageList`); Scaffold-GS raises `NotImplementedError`, and so does a
+block-parallel ADMM config (`dataset.multi_blocks`), which trains through
+`python -m dogs_tpu_torch.train_admm` (parallel/master.py). The config key
 `device` (default "cuda") places the trainer; `device=cpu` runs the plain
 PyTorch paths.
 """
@@ -16,7 +17,7 @@ from __future__ import annotations
 import logging
 import os
 
-from dogs_tpu_torch.data.dataset import load_scene
+from dogs_tpu_torch.data.dataset import SceneData, load_scene
 from dogs_tpu_torch.data.reader import LazyImageList
 from dogs_tpu_torch.data.synthetic import make_scene
 from dogs_tpu_torch.raster.tiled import RasterConfig
@@ -24,6 +25,24 @@ from dogs_tpu_torch.train.checkpoint import CheckpointManager
 from dogs_tpu_torch.train.trainer import GaussianSplatTrainer, TrainerConfig
 
 logger = logging.getLogger(__name__)
+
+
+def load_config_scene(config, scene: str) -> SceneData:
+    """`load_scene` of <dataset.root_dir>/<scene> with the config's dataset
+    keys (utils.py, preprocess_large_scale_data.py and train_admm.py read a
+    scene with the same ones, so block and val poses share one
+    normalization)."""
+    ds = config.dataset
+    return load_scene(
+        os.path.join(ds.root_dir, scene),
+        factor=int(ds.get("factor", 1)),
+        val_interval=int(ds.get("val_interval", 8)),
+        model_folder=ds.get("model_folder", "sparse"),
+        normalize=bool(ds.get("scale", True)),
+        use_manhattan_world=bool(ds.get("use_manhattan_world", False)),
+        scene_name=scene,
+        dataset_name=str(ds.get("name", "")),
+    )
 
 
 def _build_dataset(config, device) -> dict:
@@ -34,16 +53,7 @@ def _build_dataset(config, device) -> dict:
     cameras are the val split."""
     ds = config.dataset
     if ds.get("name", "synthetic") != "synthetic":
-        data = load_scene(
-            os.path.join(ds.root_dir, str(ds.scene)),
-            factor=int(ds.get("factor", 1)),
-            val_interval=int(ds.get("val_interval", 8)),
-            model_folder=ds.get("model_folder", "sparse"),
-            normalize=bool(ds.get("scale", True)),
-            use_manhattan_world=bool(ds.get("use_manhattan_world", False)),
-            scene_name=str(ds.scene),
-            dataset_name=str(ds.get("name", "")),
-        )
+        data = load_config_scene(config, str(ds.scene))
         return dict(
             train_cameras=[r.to_camera(device) for r in data.train_cameras],
             train_images=LazyImageList(data.train_cameras),
@@ -151,8 +161,9 @@ def create_trainer(config):
         )
     if bool(config.dataset.get("multi_blocks", False)):
         raise NotImplementedError(
-            "dataset.multi_blocks: block-parallel ADMM is not ported to dogs_tpu_torch yet "
-            "(ROADMAP.md queue 1, item 5); set dataset.multi_blocks=false to train the scene on one device"
+            "dataset.multi_blocks: block-parallel ADMM trains with python -m dogs_tpu_torch.train_admm "
+            "(after python -m dogs_tpu_torch.preprocess); set dataset.multi_blocks=false to train the scene "
+            "on one device"
         )
     device = config.get("device", "cuda")
     cfg, raster_cfg = _trainer_config(config), _raster_config(config)

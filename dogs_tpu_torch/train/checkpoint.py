@@ -61,10 +61,15 @@ def train_state_arrays(ts: TrainState) -> dict[str, np.ndarray]:
     return {k: v.detach().cpu().numpy() if torch.is_tensor(v) else v for k, v in _leaves(ts).items()}
 
 
+def save_arrays(path: str, arrays: dict[str, np.ndarray], extra: dict | None = None) -> None:
+    """Write leaf arrays and `extra` as dogs_tpu's `save_pytree` writes a pytree."""
+    meta = {"extra": extra or {}, "format_version": FORMAT_VERSION}
+    np.savez_compressed(path, __meta__=json.dumps(meta), **arrays)
+
+
 def save_train_state(path: str, ts: TrainState, extra: dict | None = None) -> None:
     """Write `ts` as dogs_tpu's `save_pytree` writes a `TrainState`."""
-    meta = {"extra": extra or {}, "format_version": FORMAT_VERSION}
-    np.savez_compressed(path, __meta__=json.dumps(meta), **train_state_arrays(ts))
+    save_arrays(path, train_state_arrays(ts), extra)
 
 
 def _meta(data) -> dict:
@@ -140,15 +145,27 @@ def _train_state(data, path: str, device, mask_paths: list[str]) -> TrainState:
     )
 
 
+def train_state_from_arrays(arrays: dict, device: torch.device | str = "cuda", path: str = "") -> TrainState:
+    """The port's TrainState from the leaves of one trainer state, keyed as
+    `train_state_arrays` keys them (a block of a stacked block checkpoint)."""
+    prefix = ".mask_params/"
+    return _train_state(arrays, path, device, [k[len(prefix):] for k in arrays if k.startswith(prefix)])
+
+
+def read_checkpoint(path: str) -> tuple[dict[str, np.ndarray], dict]:
+    """(every leaf array, extra) of a checkpoint of either package."""
+    with _open(path) as data:
+        arrays = {key: data[key] for key in data.files if key != "__meta__"}
+        return arrays, _meta(data).get("extra", {})
+
+
 def load_jax_train_state(path: str, device: torch.device | str = "cuda") -> TrainState:
     """Load a `dogs_tpu` trainer checkpoint (a saved `TrainState`) as the
     port's `TrainState`: the model, the sparse-Adam moments, the step, the
     per-image exposure and pose state and, where it holds them, the
     appearance mask's parameters and moments."""
     with _open(path) as data:
-        prefix = ".mask_params/"
-        mask_paths = [k[len(prefix):] for k in data.files if k.startswith(prefix)]
-        return _train_state(data, path, device, mask_paths)
+        return train_state_from_arrays(data, device, path)
 
 
 def leaf_shape(path: str, key: str) -> tuple[int, ...]:
@@ -205,11 +222,16 @@ class CheckpointManager:
             f.write("\n".join(names) + ("\n" if names else ""))
 
     def save(self, step: int, ts: TrainState, extra: dict | None = None) -> str:
+        return self.save_arrays(step, train_state_arrays(ts), extra)
+
+    def save_arrays(self, step: int, arrays: dict[str, np.ndarray], extra: dict | None = None) -> str:
+        """Save leaf arrays (a stacked block state, parallel/master.py) as
+        `save` saves a TrainState; returns the path."""
         name = f"model_{step:06d}.npz"
         path = os.path.join(self.directory, name)
         extra = dict(extra or {})
         extra["step"] = int(step)
-        save_train_state(path, ts, extra)
+        save_arrays(path, arrays, extra)
         latest = os.path.join(self.directory, "model.npz")
         tmp = latest + ".tmp"
         with open(path, "rb") as src, open(tmp, "wb") as dst:

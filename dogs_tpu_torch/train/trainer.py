@@ -14,10 +14,11 @@ step updates the state in place and returns it.
 annealing (train/schedule.py), densify / clone / split / prune with capacity
 growth in power-of-two buckets, the opacity reset, the LightGaussian
 importance prune (fields/lightgaussian.py), validation, logging and
-checkpoints (train/checkpoint.py writes dogs_tpu's format). Not ported yet,
-and raising `NotImplementedError` where they would change the result (item
-numbers of ROADMAP.md queue 1): the ADMM penalty (item 5), coarse-to-fine and
-the profiler hooks (item 7).
+checkpoints (train/checkpoint.py writes dogs_tpu's format). The block
+trainer of parallel/master.py runs the same step with the ADMM penalty
+(`make_train_step(admm=True)`). Not ported yet, and raising
+`NotImplementedError` where they would change the result: coarse-to-fine
+and the profiler hooks (ROADMAP.md queue 1, item 7).
 
 The per-image state (exposure, pose deltas, the mask's embedding) has one
 row per train camera and is indexed by the camera's `image_index`, which
@@ -299,15 +300,22 @@ def make_train_step(
     the render. Each term's Adam is the plain bias-corrected one at the
     global step: the mask at mask_lr, the camera's exposure row on its
     schedule, its pose row at pose_lr from opt_pose_start_iter on and never
-    for image 0 (the gauge; the moments update all the same)."""
-    if admm:
-        raise NotImplementedError(
-            "the ADMM penalty is not ported to dogs_tpu_torch yet (ROADMAP.md queue 1, item 5)"
-        )
+    for image 0 (the gauge; the moments update all the same).
+
+    With `admm=True` the step is `train_step(ts, camera, gt, u, z_local,
+    rho)` and adds the scaled-dual ADMM penalty of dogs_tpu (trainer.py:358-
+    368, the reference's add_admm_penalties): for each parameter p,
+    0.5 rho_p sum_alive (x_p + u_p - z_p)^2 / max(n_alive prod(shape[1:]), 1).
+    `u` and `z_local` map parameter names to (C, ...) tensors and `rho` to
+    0-d float32 tensors on the model's device; they are constants to
+    autograd. The loss metric includes the penalty."""
     _check_supported(cfg)
     lrs_fn, exposure_lr_fn = make_lr_schedules(cfg, spatial_lr_scale)
 
-    def train_step(ts: TrainState, camera: Camera, gt: torch.Tensor):
+    def train_step(ts: TrainState, camera: Camera, gt: torch.Tensor, *admm_in):
+        if len(admm_in) != (3 if admm else 0):
+            raise TypeError(f"train_step takes (ts, camera, gt{', u, z_local, rho' if admm else ''}), "
+                            f"got {len(admm_in)} extra arguments")
         model = ts.model
         params = model.params
         device = params.xyz.device
@@ -348,6 +356,14 @@ def make_train_step(
             vol = torch.prod(params.scale, dim=-1)
             loss_scaling = torch.where(model.alive, vol, torch.zeros_like(vol)).sum() / n_alive
             loss = loss + cfg.lambda_scale * loss_scaling
+            if admm:
+                u, z_local, rho = admm_in
+                for k in PARAM_NAMES:
+                    x = getattr(params, k)
+                    sq = torch.where(model.alive.view((-1,) + (1,) * (x.dim() - 1)),
+                                     (x + u[k].detach() - z_local[k].detach()) ** 2, 0.0)
+                    denom = torch.clamp(n_alive * float(np.prod(x.shape[1:])), min=1.0)
+                    loss = loss + 0.5 * rho[k] * sq.sum() / denom
             leaves = [getattr(params, k) for k in PARAM_NAMES] + [offset]
             grads = torch.autograd.grad(loss, leaves + list(extra.values()) + list(mask_leaves.values()))
         g_params, g_offset = grads[:len(PARAM_NAMES)], grads[len(PARAM_NAMES)]

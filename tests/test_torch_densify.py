@@ -277,14 +277,15 @@ def test_config_and_factory_match_dogs_tpu(path):
 
 
 def test_factory_raises_for_unported_fields_and_datasets():
-    """Scaffold-GS and block-parallel ADMM scenes raise; a COLMAP scene
+    """Scaffold-GS and block-parallel ADMM scenes raise (ADMM names its own
+    CLI, python -m dogs_tpu_torch.train_admm); a COLMAP scene
     (dataset.name other than synthetic) is built by load_scene, so a missing
     scene directory is a missing file."""
     scaffold = tconfig.load_config(str(REPO / "config" / "scaffold_gs" / "synthetic_smoke.yaml"))
     with pytest.raises(NotImplementedError, match="item 6"):
         factory.create_trainer(scaffold)
     admm = tconfig.load_config(str(REPO / "config" / "gaussian_splatting" / "urban3d_admm.yaml"))
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(NotImplementedError, match="python -m dogs_tpu_torch.train_admm"):
         factory.create_trainer(admm)
     real = tconfig.load_config(str(REPO / "config" / "gaussian_splatting" / "mipnerf360.yaml"),
                                cli_overrides=[f"dataset.root_dir={REPO / 'no_such_dir'}", "device=cpu"])

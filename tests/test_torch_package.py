@@ -34,8 +34,10 @@ def test_every_module_imports_without_jax():
         "names = [m.name for m in pkgutil.walk_packages(dogs_tpu_torch.__path__, 'dogs_tpu_torch.')]\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
-        "assert len(names) >= 40, names\n"
-        "new = {'dogs_tpu_torch.data.colmap', 'dogs_tpu_torch.data.reader', 'dogs_tpu_torch.fields.appearance'}\n"
+        "assert len(names) >= 46, names\n"
+        "new = {'dogs_tpu_torch.data.colmap', 'dogs_tpu_torch.data.reader', 'dogs_tpu_torch.fields.appearance',\n"
+        "       'dogs_tpu_torch.data.blocks', 'dogs_tpu_torch.data.splitter', 'dogs_tpu_torch.preprocess',\n"
+        "       'dogs_tpu_torch.parallel.admm', 'dogs_tpu_torch.parallel.master', 'dogs_tpu_torch.train_admm'}\n"
         "assert new <= set(names), names\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'dogs_tpu', 'yaml', 'PIL', 'imageio'))\n"
@@ -66,7 +68,8 @@ def test_every_device_parameter_defaults_to_the_card():
                 continue
             fns = [(name, obj)] if inspect.isfunction(obj) else []
             if inspect.isclass(obj):
-                fns = [(f"{name}.{m}", f) for m, f in vars(obj).items() if inspect.isfunction(f)]
+                fns = [(f"{name}.{m}", getattr(f, "__func__", f)) for m, f in vars(obj).items()
+                       if inspect.isfunction(getattr(f, "__func__", f))]  # classmethods too
             for qual, fn in fns:
                 param = inspect.signature(fn).parameters.get("device")
                 if param is None:
@@ -78,6 +81,12 @@ def test_every_device_parameter_defaults_to_the_card():
                 assert param.default == "cuda", f"{where}: device defaults to {param.default!r}"
                 found.append(where)
     assert len(found) >= 14, found
+    admm_entry_points = {"dogs_tpu_torch.parallel.master.MasterTrainer.__init__",
+                         "dogs_tpu_torch.parallel.master.MasterTrainer.from_manifests",
+                         "dogs_tpu_torch.parallel.master.load_fused_from_checkpoint",
+                         "dogs_tpu_torch.preprocess.synthetic_block_scene",
+                         "dogs_tpu_torch.train_admm.load_val_split"}
+    assert admm_entry_points <= set(found), sorted(admm_entry_points - set(found))
 
 
 def test_kernel_entry_point_raises_on_cpu_and_render_takes_plain_path():

@@ -468,8 +468,15 @@ def test_log_window_reports_the_max_bin_valid(pruned):
 
 
 def test_admm_penalty_raises():
-    with pytest.raises(NotImplementedError, match=r"item 5\)"):
-        ttrainer.make_train_step(ttrainer.TrainerConfig(), T_RASTER, 1.0, 0, (0.0, 0.0, 0.0), admm=True)
+    """The ADMM step takes u, z_local and rho (tests/test_torch_admm.py holds
+    it against dogs_tpu); called without them, or the plain step with them,
+    it raises."""
+    admm_step = ttrainer.make_train_step(ttrainer.TrainerConfig(), T_RASTER, 1.0, 0, (0.0, 0.0, 0.0), admm=True)
+    with pytest.raises(TypeError, match="u, z_local, rho"):
+        admm_step(None, None, None)
+    plain_step = ttrainer.make_train_step(ttrainer.TrainerConfig(), T_RASTER, 1.0, 0, (0.0, 0.0, 0.0))
+    with pytest.raises(TypeError, match="3 extra arguments"):
+        plain_step(None, None, None, {}, {}, {})
 
 
 def test_load_jax_train_state(tmp_path, trained):
