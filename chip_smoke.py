@@ -12,8 +12,10 @@ D-SSIM loss, the blend backward kernel, the K->N index prep and the
 segment-sum kernel, the projection VJP, sparse Adam, and the host loop's
 densify events, opacity reset, capacity growth and checkpoints), the
 LightGaussian importance prune (one VJP through all three kernels per
-camera), export, the train and eval CLIs, and real-scene training (a COLMAP
-scene through the data slice and the per-image loss terms), in phases:
+camera), export, the train and eval CLIs, real-scene training (a COLMAP
+scene through the data slice and the per-image loss terms), block-parallel
+ADMM and Scaffold-GS (anchors decoded per view by MLPs, rendered through
+the same three kernels), in phases:
 
   1. device   require CUDA; print the card's name and power limit
   2. build    compile the three kernels from dogs_tpu_torch/csrc with nvcc,
@@ -123,6 +125,27 @@ scene through the data slice and the per-image loss terms), in phases:
               (val PSNR within 1e-4 dB of the final validate()); 4 master
               steps from the post-fusion state at rho x 50 end closer to
               consensus (primal xyz) than 4 at rho = 0
+  6h. Scaffold-GS  bench.py --scaffold's run: anchors voxelized at 0.2
+              from the 500k bench means (K = 10 offsets), GT from bench scene
+              seed 7 at SH 0, the 8 bench cameras, max_tiles 12, 300
+              ScaffoldGSTrainer steps with anchor events at 200 and 300 (K1,
+              K2, K3 once a step; loss falls; every alive leaf finite; each
+              event's growth inputs printed: on this workload nothing grows,
+              so one more event after the run, at threshold 1e-9, grows
+              anchors, then 10 steps train the grown state; a capacity growth
+              must be logged); at step 1's inputs (the untrained decode) and
+              step 201's, outside the counts: K1-K3 against plain (segment sum
+              bit for bit), the image and every scaffold leaf's and the
+              means2d offset's gradient, kernels against plain; ms/step over
+              steps 151-270 without an event and bench's iters/sec there, ms
+              per event on the host, K at steps 1 and 300, peak memory, a
+              stage breakdown of 8 steps, the decode's device ms forward and
+              backward, the growth dedup per level; a checkpoint after the
+              event at 200 resumed in a fresh trainer for 10 steps, bit for
+              bit; then scaffold_gs/synthetic_smoke.yaml through the train CLI
+              (20 steps), its resume ("nothing to do") and the eval CLI
+              (uncorrected: val PSNR within 1e-4 dB of the final validate(),
+              PNGs, .splat, the .ply read back, trajectory frames)
   7. report   per-kernel JSON line (time, plain time, bound, share, library
               call time), then the device JSON line (last line)
 
@@ -139,10 +162,12 @@ import json
 import logging
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -185,6 +210,14 @@ ADMM_CUTS = [f"trainer.max_iterations={ADMM_STEPS}", "geometry.densify_start_ite
              "trainer.admm.consensus_interval=10", "prune.iterations=[20]", "trainer.n_validation=0",
              "trainer.n_checkpoint=30"]
 RHO_SCALE, RHO_STEPS = 50.0, 4
+# bench.py --scaffold's run (densify_start_iter 100, every 100) for 300
+# steps, so that anchor events run at 200 and 300 (the first at start < step),
+# with bench's timed window of 120 steps after 150; a checkpoint after the
+# event at 200 resumed for 10 steps.
+SCAFFOLD_CONFIG = "config/scaffold_gs/synthetic_smoke.yaml"
+SCAFFOLD_EVERY, SCAFFOLD_RESUME = 100, 10
+SCAFFOLD_STEPS, SCAFFOLD_EVENTS = 3 * SCAFFOLD_EVERY, (2 * SCAFFOLD_EVERY, 3 * SCAFFOLD_EVERY)
+SCAFFOLD_WINDOW = (SCAFFOLD_EVERY * 3 // 2 + 1, SCAFFOLD_EVERY * 27 // 10)
 
 
 class SmokeFailure(RuntimeError):
@@ -226,6 +259,432 @@ def cuda_ms(fn, iters: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def scaffold_phase(h) -> None:
+    """Phase 6h: Scaffold-GS, bench.py --scaffold's run at full width, then
+    the scaffold CLIs. `h` carries main's helpers: dev, smi, counted,
+    reset_counts, add_counts, check_segment_sum, random_cot, run_cli,
+    max_err."""
+    from dogs_tpu_torch.data import synthetic
+    from dogs_tpu_torch.fields import scaffold as sc
+    from dogs_tpu_torch.fields.appearance import exact_f32
+    from dogs_tpu_torch.fields.io import load_gaussian_ply
+    from dogs_tpu_torch.raster import blend, reduce
+    from dogs_tpu_torch.raster.binning import build_tile_bins
+    from dogs_tpu_torch.raster.projection import project_gaussians
+    from dogs_tpu_torch.raster.tiled import RasterConfig, entry_matrix, render_tiled
+    from dogs_tpu_torch.train.checkpoint import CheckpointManager
+    from dogs_tpu_torch.utils import png
+
+    dev, smi, counted = h.dev, h.smi, h.counted
+    n = synthetic.BENCH_GAUSSIANS
+    cams = synthetic.bench_cameras(8, device=dev)
+    kcfg = RasterConfig(max_tiles_per_gaussian=BENCH_MT)
+    kplain = dataclasses.replace(kcfg, use_kernel=False)
+    with torch.no_grad():
+        teacher = synthetic.bench_scene(n, seed=7, device=dev)
+        gts = [render_tiled(teacher, c, kcfg, active_sh_degree=0).image for c in cams]
+        del teacher
+    points = synthetic.bench_scene_arrays(n, seed=0)["xyz"]
+    scfg = sc.ScaffoldConfig(voxel_size=0.2, stat_start_iter=1, densify_start_iter=SCAFFOLD_EVERY,
+                             densify_end_iter=10**6, densification_interval=SCAFFOLD_EVERY)
+
+    def new_trainer():
+        return sc.ScaffoldGSTrainer(cams, gts, points, raster_cfg=kcfg, scaffold_cfg=scfg, device=dev)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer = new_trainer()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    anchors0, cap0 = int(trainer.state.num_alive), trainer.state.capacity
+    print(f"[scaffold] ({smi}) trainer from {n:,} points at voxel 0.2: {anchors0:,} anchors x {scfg.k_offsets} "
+          f"offsets, capacity {cap0:,}, init {init_s:.2f} s")
+
+    def next_camera(tr) -> int:
+        """The camera the trainer's next step takes, without drawing."""
+        if tr._order:
+            return tr._order[-1]
+        peek = copy.deepcopy(tr.rng)
+        return int(peek.permutation(len(tr.cameras))[-1])
+
+    def parity(label, state, i):
+        """Each kernel against its plain version at this path's inputs (the
+        decode of camera i with the prefilter, colours overridden), the
+        image and every leaf's and the means2d offset's gradient kernels
+        against plain; outside the counts. Returns the peak memory before
+        it and resets the peak after it."""
+        saved = {fn: fn.launches for fn in counted}
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev)
+        sp, alive, cam, gt = state.params, state.alive, cams[i], gts[i]
+        with torch.no_grad():
+            visible = sc.anchor_frustum_mask(sp, cam)
+            gauss, colors, neural_alive = sc.generate_neural_gaussians(sp, cam, alive=alive, visible_mask=visible)
+            proj = project_gaussians(gauss, cam, alive=neural_alive, active_sh_degree=0, color_override=colors)
+            bins = build_tile_bins(proj, cam.height, cam.width, max_tiles_per_gaussian=BENCH_MT)
+            nty, ntx = -(-cam.height // blend.TILE), -(-cam.width // blend.TILE)
+            args = (entry_matrix(proj), bins.sorted_idx, bins.tile_starts, nty, ntx, cam.width, cam.height)
+            ent_n, idx, starts, *grid = args
+            got, want = blend.blend_forward(*args), blend.blend_forward_reference(*args)
+            errs = [mostly_close(got[:, rows], want[:, rows], tol, name=f"{label} forward {what}")
+                    for rows, tol, what in ((slice(0, 3), 3e-3, "rgb"), (3, 5e-3, "alpha"), (4, 3e-3, "invdepth"))]
+            h.max_err["fwd"] = max(h.max_err["fwd"], *errs)
+            cot = h.random_cot(args, seed=19)
+            d1 = blend.blend_backward(ent_n, idx, starts, cot, *grid)
+            dref = blend.blend_backward_reference(ent_n, idx, starts, cot, *grid)
+            check(bool(torch.isfinite(d1).all()) and not d1[:, 10:].any(),
+                  f"{label}: backward output non-finite or columns 10-15 written")
+            err = max(mostly_close(d1[:, c], dref[:, c], GRAD_ATOL, name=f"{label} backward column {c}")
+                      for c in range(blend.N_GRADS))
+            h.max_err["bwd"] = max(h.max_err["bwd"], err)
+            src, runs = reduce.gaussian_runs(bins.order, idx, gauss.capacity)
+            for dt in reduce.REDUCE_DTYPES:
+                h.check_segment_sum(f"{label} {dt}", d1, src, runs, gauss.capacity, dt)
+            img_k = sc.render_scaffold(sp, cam, kcfg, alive=alive).image
+            img_p = sc.render_scaffold(sp, cam, kplain, alive=alive).image
+            img_err = mostly_close(img_k, img_p, 3e-3, name=f"{label} image")
+        k_entries, n_neural = idx.shape[0], int(neural_alive.sum())
+        del got, want, d1, dref, cot, args, ent_n, proj, bins
+        _, gk, ok, _ = sc.scaffold_loss_and_grads(sp, cam, gt, alive, scfg, kcfg)
+        _, gp, op, _ = sc.scaffold_loss_and_grads(sp, cam, gt, alive, scfg, kplain)
+        worst = {}
+        for name, a, b in zip(list(sp.leaves()) + ["means2d_offset"], gk + [ok], gp + [op]):
+            if b.numel() == 0:
+                continue
+            check(bool(torch.isfinite(a).all()), f"{label}: non-finite kernel gradient {name}")
+            mostly_close(a, b, GRAD_ATOL, name=f"{label} grad {name}")
+            worst[name] = float(((a - b).abs() / (b.abs().max() + 1e-12)).max())
+        print(f"[scaffold] ({smi}) {label}: camera {i}, {int(alive.sum()):,} anchors alive, {n_neural:,} neural "
+              f"Gaussians alive, K={k_entries:,}: image max|d| {img_err:.3e}, K1 max|d| {max(errs):.3e}, K2 max|d| "
+              f"{err:.3e}, K3 bit for bit; gradients kernels vs plain, worst scaled |d| per leaf "
+              + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()))
+        for fn, c in saved.items():
+            fn.launches = c
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        return peak
+
+    grow = sc.grow_and_prune_anchors
+    events: list[dict] = []
+
+    def timed_grow(state, cfg, rng, do_prune):
+        torch.cuda.synchronize()
+        ev = dict(step=state.step, cap0=state.capacity, alive0=int(state.num_alive),
+                  inputs=(state.offset_grad_accum.clone(), state.offset_denom.clone(), state.alive.clone()))
+        t0 = time.perf_counter()
+        new, stats = grow(state, cfg, rng, do_prune)
+        torch.cuda.synchronize()
+        ev.update(ms=(time.perf_counter() - t0) * 1e3, cap1=new.capacity, alive1=int(new.num_alive), **stats)
+        events.append(ev)
+        return new, stats
+
+    tmp = tempfile.mkdtemp()
+    manager = CheckpointManager(os.path.join(tmp, "model"))
+    step_log: list[tuple[int, float, dict]] = []
+    peaks: list[int] = []
+    snapshot: dict = {}
+    resume_path: list[str] = []
+    step_iteration = trainer.train_iteration
+
+    def timed_iteration(step):
+        resume_at = SCAFFOLD_EVENTS[0]
+        if step in (1, resume_at + 1):
+            tag = "untrained decode" if step == 1 else f"after the event at {resume_at}"
+            peaks.append(parity(f"step {step}'s inputs ({tag})", trainer.state, next_camera(trainer)))
+        if step == resume_at + 1:
+            resume_path.append(trainer.save_checkpoint(manager))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        m = step_iteration(step)
+        torch.cuda.synchronize()
+        step_log.append((step, (time.perf_counter() - t) * 1e3, m))
+        if step == resume_at + SCAFFOLD_RESUME:
+            snapshot.update({k: v.copy() for k, v in sc.scaffold_state_arrays(trainer.state).items()})
+        return m
+
+    trainer.train_iteration = timed_iteration
+    records: list[logging.LogRecord] = []
+    catcher = logging.Handler(logging.INFO)
+    catcher.emit = records.append
+    sc_log = logging.getLogger(sc.__name__)
+    level = sc_log.level
+    sc_log.addHandler(catcher)
+    sc_log.setLevel(logging.INFO)
+    sc.grow_and_prune_anchors = timed_grow
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    h.reset_counts()
+    try:
+        trainer.train(num_iterations=SCAFFOLD_STEPS, log_every=50)
+        torch.cuda.synchronize()
+        counts = h.add_counts("scaffold", list(counted))
+        peak_mb = max([torch.cuda.max_memory_allocated(dev)] + peaks) / 2**20
+    finally:
+        sc.grow_and_prune_anchors = grow
+        sc_log.removeHandler(catcher)
+        sc_log.setLevel(level)
+    for name, launches in counts.items():
+        check(launches == SCAFFOLD_STEPS, f"scaffold: {name} launched {launches} times, expected one per step")
+    losses = torch.stack([m["loss"] for _, _, m in step_log]).tolist()
+    check(all(np.isfinite(losses)), "scaffold: non-finite loss")
+    first, last = np.mean(losses[:8]), np.mean(losses[-8:])
+    check(last < first, f"scaffold: loss did not fall: first 8 mean {first}, last 8 mean {last}")
+    check([ev["step"] for ev in events] == list(SCAFFOLD_EVENTS), f"scaffold: events at {[e['step'] for e in events]}")
+
+    def growth_inputs(ev) -> str:
+        """What decided an event's growth: the offsets past the window count
+        (denom > check_interval * success_threshold / 2, alive), their mean
+        screen gradients, and how many reach each level's threshold."""
+        acc, den, alive_ev = (t.cpu().numpy() for t in ev.pop("inputs"))
+        grads = np.where(den > 0, acc / np.maximum(den, 1.0), 0.0)
+        ok = (den > scfg.check_interval * scfg.success_threshold * 0.5) & alive_ev[:, None]
+        g = grads[ok]
+        levels = [scfg.densify_grad_threshold * (scfg.update_hierarchy_factor // 2) ** i
+                  for i in range(scfg.update_depth)]
+        q = np.quantile(g, [0.5, 0.99, 0.999]) if g.size else [0.0] * 3
+        return (f"{int(ok.sum()):,} offsets past the window; mean screen gradient median {q[0]:.2e}, 99% {q[1]:.2e}, "
+                f"99.9% {q[2]:.2e}, max {g.max() if g.size else 0.0:.2e}; at or over each level's threshold: "
+                + ", ".join(f"{t:.0e}: {int((g >= t).sum()):,}" for t in levels))
+
+    diagnostics = [growth_inputs(ev) for ev in events]
+    msgs = [r.getMessage() for r in records]
+
+    def check_capacity_log(ev):
+        grown_log = f"anchor capacity grown to {ev['cap1']}" in msgs
+        check(grown_log == (ev["cap1"] != ev["cap0"]), f"scaffold: capacity {ev['cap0']} -> {ev['cap1']}, logged "
+              f"{grown_log}")
+
+    for ev in events:
+        check_capacity_log(ev)
+    state = trainer.state
+
+    def check_finite(state, label):
+        for key, leaf in state.params.leaves().items():
+            rows = leaf[state.alive] if key[1:] in sc.ANCHOR_LEAVES else leaf
+            check(bool(torch.isfinite(rows).all()), f"scaffold: non-finite {key} among the alive anchors {label}")
+
+    check_finite(state, "after the run")
+    window = [(s, ms) for s, ms, _ in step_log if SCAFFOLD_WINDOW[0] <= s <= SCAFFOLD_WINDOW[1]]
+    quiet = [ms for s, ms in window if s not in SCAFFOLD_EVENTS]
+    its = len(window) / (sum(ms for _, ms in window) / 1e3)
+    k_first, k_last = step_log[0][2]["bin_valid"], step_log[-1][2]["bin_valid"]
+
+    # Where a step's time goes: CUDA events at the stage boundaries of 8 more
+    # steps from the final state (outside the counts; the events add host
+    # time, so read the shares). Stages: the prefilter, the decode forward,
+    # the render, the loss forward, the whole backward (the loss's, K2, the
+    # K->N reduce, K3, the projection's and the decode's VJPs), dense Adam
+    # over every leaf, then the statistics and metrics.
+    saved = {fn: fn.launches for fn in counted}
+    marks: list[tuple[str, torch.cuda.Event]] = []
+
+    def mark(label):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        marks.append((label, e))
+
+    def marked(fn, before, after):
+        def run(*a, **kw):
+            mark(before(marks[-1][0] if marks else None) if callable(before) else before)
+            out = fn(*a, **kw)
+            mark(after)
+            return out
+        return run
+
+    wrapped = {"anchor_frustum_mask": ("start", "prefilter"), "generate_neural_gaussians": ("-", "decode fwd"),
+               "render_tiled": ("-", "render fwd (project, bin, K1)"), "ssim": ("-", "loss fwd"),
+               "adam_step": (lambda last: "backward" if last == "loss fwd" else "Adam", "Adam")}
+    originals_6h = {name: getattr(sc, name) for name in wrapped}
+    for name, (before, after) in wrapped.items():
+        setattr(sc, name, marked(originals_6h[name], before, after))
+    stage_ms: dict[str, list[float]] = {}
+    try:
+        for i in range(len(cams)):
+            marks.clear()
+            trainer._step_fn(trainer.state, cams[i], gts[i])
+            mark("stats + metrics")
+            torch.cuda.synchronize()
+            per_step: dict[str, float] = {}
+            for (_, e0), (label, e1) in zip(marks, marks[1:]):
+                if label != "-":
+                    per_step[label] = per_step.get(label, 0.0) + e0.elapsed_time(e1)
+            for label, ms in per_step.items():
+                stage_ms.setdefault(label, []).append(ms)
+    finally:
+        for name, fn in originals_6h.items():
+            setattr(sc, name, fn)
+    for fn, c in saved.items():
+        fn.launches = c
+    stage_total = sum(np.median(v) for v in stage_ms.values())
+
+    # The decode alone (prefilter, the three MLPs and the assembly) at the
+    # final state on camera 0, device ms from CUDA events: forward, and
+    # forward + backward to every leaf from fixed cotangents.
+    sp, alive = state.params, state.alive
+    leaves = list(sp.leaves().values())
+    g = torch.Generator(device=dev).manual_seed(3)
+
+    def decode(cots=None):
+        with exact_f32():
+            vis = sc.anchor_frustum_mask(sp, cams[0])
+            gauss, colors, _, aux = sc.generate_neural_gaussians(sp, cams[0], alive=alive, visible_mask=vis,
+                                                                 with_aux=True)
+            outs = [gauss.xyz, gauss.log_scale, gauss.quat, gauss.logit_opacity, colors, aux["scale"]]
+            if cots is None:
+                return outs
+            total = sum((o * c).sum() for o, c in zip(outs, cots))
+            return torch.autograd.grad(total, leaves, allow_unused=True)
+
+    with torch.no_grad():
+        cots = [torch.randn(o.shape, generator=g, device=dev) for o in decode()]
+        fwd_ms = cuda_ms(decode, 20)
+    fwd_bwd_ms = cuda_ms(lambda: decode(cots), 20)
+    n_decoded = int(alive.sum())
+
+    # bench.py's run grows no anchor at its events (the cells of the two
+    # coarse levels all hold an anchor; the fine level's threshold is 4x
+    # densify_grad_threshold, past the offsets' mean screen gradients, see
+    # the diagnostics printed below). So the growth path (np.unique, the set
+    # dedup, np.maximum.at, the slot fill, the capacity growth with the
+    # moments' zero extension) runs at full width in one more event after
+    # the counted run, without pruning, at a threshold every offset past the
+    # window reaches, on the final state compacted to its alive anchors: with
+    # no free slot, every new anchor needs a capacity growth. SCAFFOLD_RESUME
+    # steps train the grown state. The compacted state is checkpointed first,
+    # and a fresh
+    # trainer resumed from it (across the capacity change) takes the same
+    # event and steps bit for bit. All outside the counts.
+    saved = {fn: fn.launches for fn in counted}
+    forced = dataclasses.replace(scfg, densify_grad_threshold=1e-9)
+    keep = state.alive.cpu().numpy()
+    cut = int(keep.sum())
+    trainer.state = sc.scaffold_state_from_arrays(
+        {k: v[keep] if v.ndim and v.shape[0] == state.capacity else v
+         for k, v in sc.scaffold_state_arrays(state).items()}, dev)
+    cut_step = trainer.state.step
+    cut_path = trainer.save_checkpoint(manager)
+    cut_moments = [getattr(m, n).clone() for m in (trainer.state.mu, trainer.state.nu) for n in sc.ANCHOR_LEAVES]
+    del trainer.train_iteration  # the class's, untimed
+
+    def forced_event(tr) -> dict:
+        tr.state, _ = timed_grow(tr.state, forced, tr.rng, False)
+        ev = events.pop()
+        ev.pop("inputs")
+        return ev
+
+    def train_on(tr) -> list[float]:
+        return [float(tr.train_iteration(tr.state.step + 1)["loss"]) for _ in range(SCAFFOLD_RESUME)]
+
+    records.clear()
+    sc_log.addHandler(catcher)
+    sc_log.setLevel(logging.INFO)
+    try:
+        extra = forced_event(trainer)
+    finally:
+        sc_log.removeHandler(catcher)
+        sc_log.setLevel(level)
+    msgs = [r.getMessage() for r in records]
+    check(extra["grown"] > 0 and extra["alive1"] == extra["alive0"] + extra["grown"] and extra["cap1"] > cut,
+          f"scaffold: the extra event did not grow the anchors and the capacity: {extra}")
+    check_capacity_log(extra)
+    grown_moments = [getattr(m, n) for m in (trainer.state.mu, trainer.state.nu) for n in sc.ANCHOR_LEAVES]
+    check(all(torch.equal(g[:cut], c) and not g[cut:].any() for g, c in zip(grown_moments, cut_moments)),
+          "scaffold: the grown moments are not the old ones zero-extended")
+    del cut_moments, grown_moments
+    grown_losses = train_on(trainer)
+    check(all(np.isfinite(grown_losses)), f"scaffold: non-finite loss after the growth: {grown_losses}")
+    check_finite(trainer.state, "after the growth")
+    grown = new_trainer()
+    check(grown.load_checkpoint(manager, cut_path) == cut_step and grown.state.capacity == cut,
+          f"scaffold: the compacted checkpoint resumed at capacity {grown.state.capacity}, not {cut}")
+    forced_event(grown)
+    train_on(grown)
+    want, got = sc.scaffold_state_arrays(trainer.state), sc.scaffold_state_arrays(grown.state)
+    check(list(got) == list(want) and all(np.array_equal(got[k], want[k]) and got[k].dtype == want[k].dtype
+                                          for k in got),
+          "scaffold: the run resumed before the capacity growth differs from the uninterrupted one")
+    n_grown_leaves = len(got)
+    del grown, want, got
+    for fn, c in saved.items():
+        fn.launches = c
+
+    # The checkpoint after the first event, resumed in a fresh trainer for
+    # SCAFFOLD_RESUME steps, against the uninterrupted run (outside the counts).
+    resumed = new_trainer()
+    check(resumed.load_checkpoint(manager, resume_path[0]) == SCAFFOLD_EVENTS[0],
+          "scaffold: the checkpoint did not resume after the first event")
+    resumed.train(num_iterations=SCAFFOLD_RESUME, log_every=0)
+    got = sc.scaffold_state_arrays(resumed.state)
+    same = list(got) == list(snapshot) and all(
+        np.array_equal(got[k], snapshot[k]) and got[k].dtype == snapshot[k].dtype for k in got)
+    diffs = {k: float(np.abs(got[k].astype(np.float64) - snapshot[k]).max()) for k in got
+             if got[k].shape == snapshot[k].shape and got[k].size}
+    for fn, c in saved.items():
+        fn.launches = c
+    check(same, "scaffold: the resumed run differs from the uninterrupted one; largest differences "
+          + ", ".join(f"{k} {v:.3e}" for k, v in sorted(diffs.items(), key=lambda kv: -kv[1])[:5]))
+    del resumed, trainer, state, sp, leaves
+    shutil.rmtree(tmp)
+
+    print(f"[scaffold] ({smi}) {SCAFFOLD_STEPS} steps, bench.py --scaffold's run (1152x864, 8 cameras, "
+          f"max_tiles 12): loss {losses[0]:.5f} -> {losses[-1]:.5f} (mean of the first 8 {first:.5f}, last 8 "
+          f"{last:.5f}); ms/step median over steps {SCAFFOLD_WINDOW[0]}-{SCAFFOLD_WINDOW[1]} without an event "
+          f"{np.median(quiet):.2f} (min {min(quiet):.2f}, max {max(quiet):.2f}); bench's iters/sec over that "
+          f"window {its:.3f}; K at step 1 {k_first:,}, at step {SCAFFOLD_STEPS} {k_last:,}; peak memory "
+          f"{peak_mb:.0f} MiB")
+    for ev, why in zip(events, diagnostics):
+        print(f"[scaffold] ({smi}) event at step {ev['step']}: anchors {ev['alive0']:,} -> {ev['alive1']:,} (+"
+              f"{ev['grown']:,} -{ev['pruned']:,}), capacity {ev['cap0']:,} -> {ev['cap1']:,}; host "
+              f"{ev['ms']:.1f} ms (grow_and_prune_anchors, with the dedup and the copies both ways); {why}")
+    print(f"[scaffold] ({smi}) one more event after the run at threshold 1e-9, without pruning, on the state "
+          f"compacted to its alive anchors: anchors {extra['alive0']:,} -> {extra['alive1']:,} (+{extra['grown']:,}), "
+          f"capacity {extra['cap0']:,} -> {extra['cap1']:,} (logged; the anchor moments zero-extended); host "
+          f"{extra['ms']:.1f} ms; {SCAFFOLD_RESUME} steps on the grown state: loss {grown_losses[0]:.5f} -> "
+          f"{grown_losses[-1]:.5f}, every alive leaf finite; the compacted state's checkpoint resumed in a fresh trainer "
+          f"of capacity {cap0:,} and taken through the same event and steps: equal bit for bit "
+          f"({n_grown_leaves} leaves)")
+    print(f"[scaffold] ({smi}) stages of a step from the final state (CUDA events, median of 8 steps): "
+          + ", ".join(f"{label} {np.median(v):.3f} ms ({100 * np.median(v) / stage_total:.1f}%)"
+                      for label, v in stage_ms.items()) + f"; sum {stage_total:.3f} ms")
+    print(f"[scaffold] ({smi}) decode (prefilter, three MLPs, assembly) at {n_decoded:,} anchors on camera 0: "
+          f"forward {fwd_ms:.3f} ms, forward + backward {fwd_bwd_ms:.3f} ms (CUDA events, 20 runs)")
+    print(f"[scaffold] ({smi}) checkpoint after the event at {SCAFFOLD_EVENTS[0]} resumed in a fresh trainer for "
+          f"{SCAFFOLD_RESUME} steps: equal to the uninterrupted run bit for bit ({len(got)} leaves)")
+
+    # The scaffold CLIs on the card, each in its own process. The eval is
+    # uncorrected, as the scaffold trainer's validate() scores.
+    with tempfile.TemporaryDirectory() as out:
+        common = [f"root_dir={out}", f"trainer.max_iterations={CLI_STEPS}", "trainer.n_tensorboard=10"]
+        log, train_s = h.run_cli("dogs_tpu_torch.train", *common, config=SCAFFOLD_CONFIG)
+        final = re.search(r"final val: \{'val_psnr': ([-+0-9.eE]+)\}", log)
+        check(final is not None, "scaffold train CLI: no final validation logged")
+        train_val = float(final.group(1))
+        log, resume_s = h.run_cli("dogs_tpu_torch.train", *common, "trainer.resume=true", config=SCAFFOLD_CONFIG)
+        check(f"resumed from step {CLI_STEPS}" in log and "nothing to do" in log,
+              "scaffold train CLI resume: did not resume to 'nothing to do'")
+        log, eval_s = h.run_cli("dogs_tpu_torch.eval", *common, f"eval.n_test_poses={CLI_POSES}",
+                                "eval.color_correct=false", config=SCAFFOLD_CONFIG)
+        run = os.path.join(out, "scaffold_gs_novel_view_synthesis_synthetic_toy")
+        with open(os.path.join(run, "eval", "val", "metrics.json")) as f:
+            cli_mean = json.load(f)["mean"]
+        check(abs(cli_mean["psnr"] - train_val) <= 1e-4,
+              f"scaffold eval CLI val PSNR {cli_mean['psnr']} vs the train CLI's final validate() {train_val}")
+        frames = sorted(f for f in os.listdir(os.path.join(run, "eval", "test")) if f.endswith(".png"))
+        check(len(frames) == CLI_POSES, f"scaffold eval CLI: {len(frames)} trajectory frames")
+        pngs = [os.path.join(run, "eval", "val", f) for f in ("00000.png", "00000_gt.png")]
+        for path in pngs + [os.path.join(run, "eval", "test", f) for f in frames]:
+            check(png.png_size(path) == (96, 80), f"{path}: not a 96x80 PNG")
+        n_points = cli_mean["num_points"]
+        splat = os.path.getsize(os.path.join(run, "export", "model.splat"))
+        check(n_points > 0 and splat == 32 * n_points, f"scaffold eval CLI: .splat {splat} bytes for {n_points}")
+        check(load_gaussian_ply(os.path.join(run, "export", "model.ply"), dev).capacity == n_points,
+              "scaffold eval CLI: the .ply does not read back the exported rows")
+    print(f"[scaffold] ({smi}) CLIs on {SCAFFOLD_CONFIG}: train {CLI_STEPS} steps {train_s:.1f} s (final val psnr "
+          f"{train_val:.6f}), resume {resume_s:.1f} s (nothing to do), eval {eval_s:.1f} s: val psnr "
+          f"{cli_mean['psnr']:.6f} ssim {cli_mean['ssim']:.5f}, {n_points} decoded Gaussians exported (.splat "
+          f"{splat} B, the .ply read back), {len(frames)} trajectory frames")
 
 
 def main() -> int:
@@ -1521,6 +1980,11 @@ def main() -> int:
           f"({resume_s:.1f} s) and fused equal to the global model ({fuse_ckpt_s:.1f} s); eval CLI "
           f"{admm_eval_s:.1f} s: val psnr {admm_eval['psnr']:.6f}; primal xyz after {RHO_STEPS} steps from the "
           f"fusion at rho x {RHO_SCALE:g} {rho_tied:.4e}, at rho = 0 {rho_free:.4e}")
+
+    # ---- 6h. Scaffold-GS (main paths 10 and 11): anchors at full width ------
+    scaffold_phase(SimpleNamespace(dev=dev, smi=smi, counted=counted, reset_counts=reset_counts,
+                                   add_counts=add_counts, check_segment_sum=check_segment_sum,
+                                   random_cot=random_cot, run_cli=run_cli, max_err=max_err))
 
     # ---- 7. report ---------------------------------------------------------
     sources = {

@@ -14,6 +14,8 @@ for leaf (`params_from_numpy`):
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 from torch import nn
@@ -65,6 +67,29 @@ class GaussianParams(nn.Module):
     def features(self) -> torch.Tensor:
         """(C, K, 3) full SH coefficient stack."""
         return torch.cat([self.feat_dc, self.feat_rest], dim=1)
+
+
+@dataclasses.dataclass
+class NeuralGaussians:
+    """The six fields of `GaussianParams` as plain tensors, for Gaussians
+    computed inside a differentiable function (Scaffold-GS decodes them per
+    view from its anchor MLPs, fields/scaffold.py). `GaussianParams` wraps
+    each field in `nn.Parameter`, a new autograd leaf that would cut the
+    decoded tensors off from the MLPs; this keeps the graph. The projection
+    and `render_tiled` take either."""
+
+    xyz: torch.Tensor
+    feat_dc: torch.Tensor
+    feat_rest: torch.Tensor
+    log_scale: torch.Tensor
+    quat: torch.Tensor
+    logit_opacity: torch.Tensor
+
+    capacity = GaussianParams.capacity
+    max_sh_degree = GaussianParams.max_sh_degree
+    scale = GaussianParams.scale
+    opacity = GaussianParams.opacity
+    features = GaussianParams.features
 
 
 def inverse_sigmoid(x: torch.Tensor) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""Eval CLI of the port (the port of the root eval.py, for `neural_field_type: gs`).
+"""Eval CLI of the port (the port of the root eval.py).
 
     python -m dogs_tpu_torch.eval --config config/gaussian_splatting/synthetic_smoke.yaml \
         [--scene toy] [--suffix run1] [key=value ...]
@@ -15,7 +15,8 @@ without PIL). A block-parallel ADMM run (`dataset.multi_blocks`, trained by
 `python -m dogs_tpu_torch.train_admm`) is scored by `evaluate_admm`: the
 fused model rebuilt from its block checkpoint on one device, the val split,
 metrics.json and the exports, as eval.py's evaluate_admm does (no test
-trajectory). Scaffold-GS raises `NotImplementedError` from the factory.
+trajectory). A Scaffold-GS run (`neural_field_type: scaffold_gs`) is scored
+through `ScaffoldEvaluator`, as eval.py scores it.
 """
 
 from __future__ import annotations
@@ -24,10 +25,19 @@ import copy
 import logging
 import os
 import sys
+from typing import Sequence
 
+import torch
+
+from dogs_tpu_torch.core.camera import Camera
+from dogs_tpu_torch.core.gaussians import GaussianParams
+from dogs_tpu_torch.core.sh import rgb_to_sh
 from dogs_tpu_torch.eval.evaluator import EvalConfig, GaussianSplatEvaluator
 from dogs_tpu_torch.factory import _raster_config, create_trainer
+from dogs_tpu_torch.fields.model import GaussianModelState, fresh_stats
+from dogs_tpu_torch.fields.scaffold import ScaffoldGSTrainer, ScaffoldParams, generate_neural_gaussians, render_scaffold
 from dogs_tpu_torch.parallel.master import load_fused_from_checkpoint, load_manifest_partition
+from dogs_tpu_torch.raster.tiled import RasterConfig
 from dogs_tpu_torch.train.checkpoint import CheckpointManager
 from dogs_tpu_torch.train_admm import load_val_split
 from dogs_tpu_torch.utils.config import config_parser, load_config
@@ -47,8 +57,41 @@ def _eval_config(config) -> EvalConfig:
     )
 
 
+class ScaffoldEvaluator(GaussianSplatEvaluator):
+    """eval.py's ScaffoldEvaluator: a Scaffold-GS render is decoded per view
+    from the anchor MLPs, so `render` decodes at each camera (with the
+    frustum prefilter and the configured background); `model`, which the
+    export and the metrics' `num_points` read, is the decode at a canonical
+    camera (the first val camera) with the decoded colours as SH DC
+    coefficients and no higher bands."""
+
+    def __init__(self, sp: ScaffoldParams, alive: torch.Tensor, raster_cfg: RasterConfig, cfg: EvalConfig,
+                 cameras: Sequence[Camera]):
+        self.sp, self.alive = sp, alive
+        self.raster_cfg, self.cfg = raster_cfg, cfg
+        self.device = alive.device
+        self._export_camera = cameras[0] if cameras else None
+
+    @torch.no_grad()
+    def render(self, camera: Camera) -> torch.Tensor:
+        out = render_scaffold(self.sp, camera, self.raster_cfg, alive=self.alive,
+                              background=torch.tensor(self.cfg.background, dtype=torch.float32, device=self.device))
+        return torch.clamp(out.image, 0.0, 1.0)
+
+    @property
+    @torch.no_grad()
+    def model(self) -> GaussianModelState:
+        g, colors, alive = generate_neural_gaussians(self.sp, self._export_camera, alive=self.alive)
+        params = GaussianParams(xyz=g.xyz, feat_dc=rgb_to_sh(colors)[:, None, :], feat_rest=g.feat_rest,
+                                log_scale=g.log_scale, quat=g.quat, logit_opacity=g.logit_opacity)
+        return GaussianModelState(params, alive, *fresh_stats(params.capacity, self.device))
+
+
 def create_evaluator(config, trainer) -> GaussianSplatEvaluator:
     """The evaluator of a trained model, configured as eval.py configures it."""
+    if isinstance(trainer, ScaffoldGSTrainer):
+        return ScaffoldEvaluator(trainer.state.params, trainer.state.alive, trainer.raster_cfg, _eval_config(config),
+                                 trainer.val_cameras)
     return GaussianSplatEvaluator(trainer.state.model, trainer.raster_cfg, _eval_config(config))
 
 

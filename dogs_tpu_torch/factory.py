@@ -1,12 +1,13 @@
 """Trainer factory: the port of the root utils.py (reference utils.py:8-23).
 
 `create_trainer(config)` builds (trainer, checkpoint_manager,
-tensorboard_writer) from a resolved config (utils/config.py). The port
-supports `neural_field_type: gs` on the synthetic scene and on COLMAP scenes
-(every other `dataset.name`: data/dataset.py `load_scene` under
-<dataset.root_dir>/<dataset.scene>, the train split streamed through a
-`LazyImageList`); Scaffold-GS raises `NotImplementedError`, and so does a
-block-parallel ADMM config (`dataset.multi_blocks`), which trains through
+tensorboard_writer) from a resolved config (utils/config.py), keyed on
+`neural_field_type`: `scaffold_gs` builds the Scaffold-GS trainer
+(fields/scaffold.py), anything else the 3DGS trainer, on the synthetic scene
+and on COLMAP scenes (every other `dataset.name`: data/dataset.py
+`load_scene` under <dataset.root_dir>/<dataset.scene>, the train split
+streamed through a `LazyImageList`). A block-parallel ADMM config
+(`dataset.multi_blocks`) raises `NotImplementedError`: it trains through
 `python -m dogs_tpu_torch.train_admm` (parallel/master.py). The config key
 `device` (default "cuda") places the trainer; `device=cpu` runs the plain
 PyTorch paths.
@@ -20,6 +21,7 @@ import os
 from dogs_tpu_torch.data.dataset import SceneData, load_scene
 from dogs_tpu_torch.data.reader import LazyImageList
 from dogs_tpu_torch.data.synthetic import make_scene
+from dogs_tpu_torch.fields.scaffold import ScaffoldConfig, ScaffoldGSTrainer
 from dogs_tpu_torch.raster.tiled import RasterConfig
 from dogs_tpu_torch.train.checkpoint import CheckpointManager
 from dogs_tpu_torch.train.trainer import GaussianSplatTrainer, TrainerConfig
@@ -135,6 +137,40 @@ def _trainer_config(config) -> TrainerConfig:
     )
 
 
+def _scaffold_config(config) -> ScaffoldConfig:
+    """utils.py's ScaffoldConfig mapping, key for key and default for
+    default (check_interval and min_opacity are not read)."""
+    anchor = config.get("anchor", {}) or {}
+    geo = config.geometry
+    lr = config.optimizer.lr
+    return ScaffoldConfig(
+        max_iterations=int(config.trainer.max_iterations),
+        voxel_size=float(anchor.get("voxel_size", geo.get("voxel_size", 0.05))),
+        k_offsets=int(anchor.get("n_offsets", geo.get("num_offsets", 10))),
+        lambda_dssim=float(config.loss.get("lambda_dssim", 0.2)),
+        lambda_scale=float(config.loss.get("lambda_scale", 0.01)),
+        anchor_lr_init=float(lr.get("position_init", 1.6e-4)),
+        anchor_lr_final=float(lr.get("position_final", 1.6e-6)),
+        feat_lr=float(lr.get("anchor_feat", lr.get("feature", 4e-3))),
+        offset_lr_init=float(lr.get("offset_init", 1e-2)),
+        offset_lr_final=float(lr.get("offset_final", 1e-4)),
+        scaling_lr=float(lr.get("scaling", 7e-3)),
+        mlp_lr_init=float(lr.get("mlp_opacity_init", 2e-3)),
+        mlp_lr_final=float(lr.get("mlp_opacity_final", 2e-5)),
+        app_lr=float(lr.get("app_embedding_init", 5e-2)),
+        update_depth=int(geo.get("update_depth", 3)),
+        update_init_factor=int(geo.get("update_init_factor", 16)),
+        update_hierarchy_factor=int(geo.get("update_hierarchy_factor", 4)),
+        stat_start_iter=int(geo.get("stat_start_iter", 500)),
+        densify_start_iter=int(geo.get("densify_start_iter", 1500)),
+        densify_end_iter=int(geo.get("densify_end_iter", 15000)),
+        densification_interval=int(geo.get("densification_interval", 100)),
+        densify_grad_threshold=float(geo.get("densify_grad_threshold", 2e-4)),
+        use_feat_bank=bool(geo.get("use_feat_bank", False)),
+        appearance_dim=int(config.texture.get("appearance_dim", 0)),
+    )
+
+
 def _raster_config(config) -> RasterConfig:
     """The render keys of the config. The TPU budget and schedule keys
     (pipeline.use_pallas, pallas_stream, bin_capacity, base_tiles,
@@ -154,11 +190,6 @@ def create_trainer(config):
     writer is a tensorboardX SummaryWriter when trainer.enable_tensorboard is
     set and tensorboardX imports, else None."""
     field_type = config.get("neural_field_type", "gs")
-    if field_type != "gs":
-        raise NotImplementedError(
-            f"neural_field_type={field_type!r}: Scaffold-GS is not ported to dogs_tpu_torch yet "
-            "(ROADMAP.md queue 1, item 6)"
-        )
     if bool(config.dataset.get("multi_blocks", False)):
         raise NotImplementedError(
             "dataset.multi_blocks: block-parallel ADMM trains with python -m dogs_tpu_torch.train_admm "
@@ -166,7 +197,7 @@ def create_trainer(config):
             "on one device"
         )
     device = config.get("device", "cuda")
-    cfg, raster_cfg = _trainer_config(config), _raster_config(config)
+    raster_cfg = _raster_config(config)
     data = _build_dataset(config, device)
 
     out_root = os.path.join(config.get("root_dir", "out"), config.get("expname", "exp"))
@@ -183,16 +214,11 @@ def create_trainer(config):
         else:
             writer = SummaryWriter(os.path.join(out_root, "logs"))
 
-    trainer = GaussianSplatTrainer(
-        cameras=data["train_cameras"],
-        images=data["train_images"],
-        points=data["points"],
-        colors=data["colors"],
-        cfg=cfg,
-        raster_cfg=raster_cfg,
-        val_cameras=data["val_cameras"],
-        val_images=data["val_images"],
-        seed=int(config.get("seed", 42)),
-        device=device,
-    )
+    common = dict(cameras=data["train_cameras"], images=data["train_images"], points=data["points"],
+                  raster_cfg=raster_cfg, val_cameras=data["val_cameras"], val_images=data["val_images"],
+                  seed=int(config.get("seed", 42)), device=device)
+    if field_type == "scaffold_gs":
+        trainer = ScaffoldGSTrainer(scaffold_cfg=_scaffold_config(config), **common)
+    else:
+        trainer = GaussianSplatTrainer(colors=data["colors"], cfg=_trainer_config(config), **common)
     return trainer, ckpt_manager, writer

@@ -14,7 +14,7 @@ import dataclasses
 import torch
 
 from dogs_tpu_torch.core.camera import Camera
-from dogs_tpu_torch.core.gaussians import GaussianParams
+from dogs_tpu_torch.core.gaussians import GaussianParams, NeuralGaussians
 from dogs_tpu_torch.core.sh import eval_sh
 from dogs_tpu_torch.core.transforms import covariance_sym6
 
@@ -72,7 +72,7 @@ def compute_cov2d(cov3d, p_cam, fx, fy, tan_fovx, tan_fovy, R_w2c):
 
 
 def project_gaussians(
-    params: GaussianParams,
+    params: GaussianParams | NeuralGaussians,
     camera: Camera,
     alive: torch.Tensor | None = None,
     active_sh_degree: int = 3,
@@ -81,7 +81,9 @@ def project_gaussians(
     means2d_offset: torch.Tensor | None = None,
     color_override: torch.Tensor | None = None,
 ) -> ProjectedGaussians:
-    """Vectorized preprocess over all (padded) Gaussians.
+    """Vectorized preprocess over all (padded) Gaussians. Reads `params`'
+    xyz, scale, quat and opacity (and features without `color_override`),
+    so decoded `NeuralGaussians` keep their graph.
 
     Args:
       alive: (C,) bool mask of live Gaussians (padding slots get radius 0).

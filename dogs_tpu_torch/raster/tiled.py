@@ -21,7 +21,7 @@ import dataclasses
 import torch
 
 from dogs_tpu_torch.core.camera import Camera
-from dogs_tpu_torch.core.gaussians import GaussianParams
+from dogs_tpu_torch.core.gaussians import GaussianParams, NeuralGaussians
 from dogs_tpu_torch.raster import blend, reduce
 from dogs_tpu_torch.raster.binning import build_tile_bins
 from dogs_tpu_torch.raster.projection import ProjectedGaussians, project_gaussians
@@ -160,7 +160,7 @@ def _detached(proj: ProjectedGaussians) -> ProjectedGaussians:
 
 
 def render_tiled(
-    params: GaussianParams,
+    params: GaussianParams | NeuralGaussians,
     camera: Camera,
     cfg: RasterConfig = RasterConfig(),
     background: torch.Tensor | None = None,
@@ -173,7 +173,9 @@ def render_tiled(
 ) -> RenderOutput:
     """Render one camera; differentiable in the parameters, `background`,
     `means2d_offset` (the densify signal), `invd_offset` (the importance
-    signal) and `color_override`. Arguments as dogs_tpu's render_tiled.
+    signal) and `color_override`; in the fields of `NeuralGaussians`
+    (Scaffold-GS's decoded Gaussians) too. Arguments as dogs_tpu's
+    render_tiled.
     Serving callers wrap it in `torch.no_grad()`."""
     h, w = camera.height, camera.width
     ts = cfg.tile_size

@@ -8,9 +8,9 @@ Per-scene loop over `dataset.scene`: builds the trainer with
 `trainer.ckpt_path` is set, trains with the configured cadences, writes a
 final checkpoint and logs the final validation. `device=cpu` runs on the
 CPU (the default is the card). Trains the synthetic scene and COLMAP scenes
-(every shipped gaussian_splatting config; PNG images on a machine without
-PIL) on one device; `dataset.multi_blocks` (block-parallel ADMM, trained by
-`python -m dogs_tpu_torch.train_admm`) and Scaffold-GS raise
+(every shipped gaussian_splatting and scaffold_gs config; PNG images on a
+machine without PIL) on one device; `dataset.multi_blocks` (block-parallel
+ADMM, trained by `python -m dogs_tpu_torch.train_admm`) raises
 `NotImplementedError` from the factory.
 """
 

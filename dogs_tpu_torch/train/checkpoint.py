@@ -13,7 +13,11 @@ step, the appearance mask CNN's parameters and moments under
 `jax.tree_util` path, `['conv_in']/['w']`, ...; none when the mask is off)
 and the pose deltas with their moments. The port writes exactly the leaf
 keys, shapes and dtypes of a JAX `TrainState`, so either package resumes
-from the other's checkpoints.
+from the other's checkpoints. A Scaffold-GS checkpoint holds a
+`ScaffoldTrainState` in the same way (fields/scaffold.py keys its leaves:
+`.params/.anchor_xyz`, `.params/.mlp_opacity/['w0']`, ..., the moments under
+`.mu/` and `.nu/`, `.step`, `.alive` and the anchor statistics);
+`load_scaffold_state` reads it.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import torch
 from dogs_tpu_torch.core.gaussians import PARAM_NAMES, params_from_numpy
 from dogs_tpu_torch.fields.appearance import flatten
 from dogs_tpu_torch.fields.model import GaussianModelState
+from dogs_tpu_torch.fields.scaffold import ScaffoldTrainState, scaffold_state_from_arrays, scaffold_state_leaves
 from dogs_tpu_torch.train.optim import SparseAdamState
 from dogs_tpu_torch.train.trainer import TrainState
 
@@ -177,24 +182,46 @@ def leaf_shape(path: str, key: str) -> tuple[int, ...]:
         return tuple(read(f)[0])
 
 
-def load_train_state(path: str, template: TrainState) -> tuple[TrainState, dict]:
-    """Load a trainer checkpoint of either package into the structure of
-    `template`, as dogs_tpu's `load_pytree`: every leaf of the template must
-    be there with the template's shape (grow or shrink the template's
-    capacity first). Each leaf is read once. Returns (state on the
-    template's device, extra)."""
+def _load_like(path: str, shapes: dict[str, tuple[int, ...]]) -> tuple[dict[str, np.ndarray], dict]:
+    """(the leaves named in `shapes` read from `path`, extra), as dogs_tpu's
+    `load_pytree` reads them: every leaf must be there with its shape in
+    `shapes`. Each leaf is read once; leaves not named are not read."""
     with _open(path) as data:
-        arrays = {key: data[key] for key in data.files}
-    for key, leaf in _leaves(template).items():
-        if key not in arrays:
-            raise KeyError(f"checkpoint missing leaf {key}")
-        if tuple(arrays[key].shape) != tuple(leaf.shape):
+        extra = _meta(data).get("extra", {})
+        arrays = {}
+        for key in shapes:
+            if key not in data:
+                raise KeyError(f"checkpoint missing leaf {key}")
+            arrays[key] = data[key]
+    for key, shape in shapes.items():
+        if tuple(arrays[key].shape) != tuple(shape):
             raise ValueError(
                 f"checkpoint leaf {key} has shape {arrays[key].shape}, template expects "
-                f"{tuple(leaf.shape)}; resize the template (capacity grow/shrink) before loading"
+                f"{tuple(shape)}; resize the template (capacity grow/shrink) before loading"
             )
+    return arrays, extra
+
+
+def load_train_state(path: str, template: TrainState) -> tuple[TrainState, dict]:
+    """Load a trainer checkpoint of either package into the structure of
+    `template` (`_load_like`). Returns (state on the template's device,
+    extra)."""
+    arrays, extra = _load_like(path, {k: tuple(v.shape) for k, v in _leaves(template).items()})
     state = _train_state(arrays, path, template.model.params.xyz.device, list(flatten(template.mask_params)))
-    return state, _meta(arrays).get("extra", {})
+    return state, extra
+
+
+def load_scaffold_state(path: str, template: ScaffoldTrainState) -> tuple[ScaffoldTrainState, dict]:
+    """Load a Scaffold-GS checkpoint of either package into the structure
+    of `template` (`_load_like`: the template's MLP heads) at the file's
+    anchor capacity: every leaf whose first dimension is the template's
+    capacity takes the stored one, as dogs_tpu's resize before its load.
+    Returns (state on the template's device, extra)."""
+    cap, stored = template.capacity, leaf_shape(path, ".alive")[0]
+    shapes = {k: (stored,) + tuple(v.shape[1:]) if len(v.shape) and v.shape[0] == cap else tuple(v.shape)
+              for k, v in scaffold_state_leaves(template).items()}
+    arrays, extra = _load_like(path, shapes)
+    return scaffold_state_from_arrays(arrays, template.alive.device), extra
 
 
 class CheckpointManager:

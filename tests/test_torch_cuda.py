@@ -1,14 +1,16 @@
 """CUDA lane: the hand-written kernels (blend forward, blend backward,
 segment sum) against their plain PyTorch versions on the card, the
-LightGaussian importance render through them, and the densify surgery,
-LPIPS, the windowed KNN and the appearance mask CNN on the card against the
-CPU. Every test here needs a CUDA
+LightGaussian importance render and the Scaffold-GS render and step through
+them, and the densify surgery, LPIPS, the windowed KNN, the appearance mask
+CNN and the Scaffold-GS decode on the card against the CPU. Every test here needs a CUDA
 device and skips without one. The file imports no JAX, so it runs on a machine with the card alone:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
 (`--noconftest` skips tests/conftest.py, which sets up JAX for the CPU suite.)
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -354,3 +356,97 @@ def test_appearance_mask_on_card_matches_cpu_with_tf32_off(cuda):
     torch.testing.assert_close(card_mask, cpu_mask, rtol=0, atol=1e-5 * float(cpu_mask.abs().max()))
     for a, b in zip(card_grads, cpu_grads):
         torch.testing.assert_close(a, b, rtol=0, atol=GRAD_ATOL * float(b.abs().max()))
+
+
+# ---- Scaffold-GS (the port of tests/tpu/test_tpu_scaffold.py) -----------------
+
+SCAFFOLD_POINTS = 60_000
+SCAFFOLD_RASTER = RasterConfig(max_tiles_per_gaussian=12)
+
+
+@pytest.fixture(scope="module")
+def scaffold_trainer():
+    """A Scaffold-GS trainer at bench shapes: anchors voxelized at 0.25 from
+    60k bench means, 2 bench cameras at 1152x864, GT the bench scene's
+    renders at SH 0 through the kernels."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU build")
+    from dogs_tpu_torch.fields import scaffold
+
+    dev = torch.device("cuda", 0)
+    params = synthetic.bench_scene(SCAFFOLD_POINTS, seed=11, device=dev)
+    cams = synthetic.bench_cameras(2, device=dev)
+    with torch.no_grad():
+        gts = [render_tiled(params, c, SCAFFOLD_RASTER, active_sh_degree=0).image for c in cams]
+    cfg = scaffold.ScaffoldConfig(max_iterations=100, voxel_size=0.25, stat_start_iter=1, densify_start_iter=10**9)
+    return scaffold.ScaffoldGSTrainer(cams, gts, params.xyz.detach().cpu().numpy(), raster_cfg=SCAFFOLD_RASTER,
+                                      scaffold_cfg=cfg, device=dev)
+
+
+def mostly_close(got, want, atol, frac, max_out):
+    """tests/tpu/test_tpu_scaffold.py's bar: differences scaled by the
+    reference's max."""
+    d = (got - want).abs() / (want.abs().max() + 1e-8)
+    assert float((d <= atol).float().mean()) >= frac and float(d.max()) <= max_out
+
+
+def test_scaffold_render_kernels_match_plain(scaffold_trainer):
+    """The decode and render through the kernels against the plain blend,
+    identical anchors (tests/tpu/test_tpu_scaffold.py's bar)."""
+    from dogs_tpu_torch.fields import scaffold
+
+    tr = scaffold_trainer
+    counts = blend.blend_forward.launches
+    with torch.no_grad():
+        got = scaffold.render_scaffold(tr.state.params, tr.cameras[0], SCAFFOLD_RASTER, alive=tr.state.alive)
+        want = scaffold.render_scaffold(tr.state.params, tr.cameras[0],
+                                        RasterConfig(max_tiles_per_gaussian=12, use_kernel=False),
+                                        alive=tr.state.alive)
+    assert blend.blend_forward.launches == counts + 1 and got.bin_valid == want.bin_valid > 0
+    mostly_close(got.image, want.image, 5e-3, 0.998, 0.1)
+
+
+def test_scaffold_train_step_at_bench_shapes(scaffold_trainer):
+    """One step at bench shapes: a finite loss, nothing dropped by binning,
+    anchor_feat moved, each kernel launched once."""
+    tr = scaffold_trainer
+    before = tr.state.params.anchor_feat.detach().clone()
+    launches = [fn.launches for fn in (blend.blend_forward, blend.blend_backward, reduce.sorted_segment_sum)]
+    m = tr.train_iteration(tr.state.step + 1)
+    assert np.isfinite(float(m["loss"])) and m["bin_dropped"] == 0 and m["bin_pool_truncated"] == 0
+    assert [fn.launches for fn in (blend.blend_forward, blend.blend_backward,
+                                   reduce.sorted_segment_sum)] == [n + 1 for n in launches]
+    assert float((tr.state.params.anchor_feat.detach() - before).abs().max()) > 0
+
+
+def test_scaffold_decode_on_card_matches_cpu_in_exact_f32(scaffold_trainer):
+    """The decode on the card against the CPU at 1e-5 with TF32 switched on
+    globally: the MLPs turn it off for themselves (TF32's 10-bit mantissa
+    would put them ~1e-3 off)."""
+    from dogs_tpu_torch.fields import scaffold
+
+    tr = scaffold_trainer
+    arrays = {k: v.detach().cpu().numpy() for k, v in tr.state.params.leaves().items()}
+    arrays[".anchor_feat"] = arrays[".anchor_feat"] + np.random.RandomState(0).randn(
+        *arrays[".anchor_feat"].shape).astype(np.float32)
+    alive = tr.state.alive.cpu()
+    cam = tr.cameras[1]
+    cam_cpu = dataclasses.replace(cam, **{f: getattr(cam, f).cpu() for f in ("R", "t", "fx", "fy", "cx", "cy")})
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with torch.no_grad():
+            outs = {}
+            for dev, c in ((tr.device, cam), ("cpu", cam_cpu)):
+                g, colors, na, aux = scaffold.generate_neural_gaussians(
+                    scaffold.scaffold_params_from_numpy(arrays, dev), c, alive=alive.to(dev), with_aux=True)
+                outs[str(dev)] = [t.cpu() for t in (g.xyz, g.log_scale, g.quat, g.opacity, colors,
+                                                    aux["neural_opacity"])] + [na.cpu()]
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+    card, cpu = outs[str(tr.device)], outs["cpu"]
+    for a, b in zip(card[:-1], cpu[:-1]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    near_zero = (cpu[5].abs() < 1e-6).reshape(-1)
+    assert not ((card[-1] != cpu[-1]) & ~near_zero).any()

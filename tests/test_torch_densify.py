@@ -277,13 +277,10 @@ def test_config_and_factory_match_dogs_tpu(path):
 
 
 def test_factory_raises_for_unported_fields_and_datasets():
-    """Scaffold-GS and block-parallel ADMM scenes raise (ADMM names its own
-    CLI, python -m dogs_tpu_torch.train_admm); a COLMAP scene
-    (dataset.name other than synthetic) is built by load_scene, so a missing
-    scene directory is a missing file."""
-    scaffold = tconfig.load_config(str(REPO / "config" / "scaffold_gs" / "synthetic_smoke.yaml"))
-    with pytest.raises(NotImplementedError, match="item 6"):
-        factory.create_trainer(scaffold)
+    """Block-parallel ADMM scenes raise (ADMM names its own CLI, python -m
+    dogs_tpu_torch.train_admm); a COLMAP scene (dataset.name other than
+    synthetic) is built by load_scene, so a missing scene directory is a
+    missing file."""
     admm = tconfig.load_config(str(REPO / "config" / "gaussian_splatting" / "urban3d_admm.yaml"))
     with pytest.raises(NotImplementedError, match="python -m dogs_tpu_torch.train_admm"):
         factory.create_trainer(admm)
@@ -291,6 +288,45 @@ def test_factory_raises_for_unported_fields_and_datasets():
                                cli_overrides=[f"dataset.root_dir={REPO / 'no_such_dir'}", "device=cpu"])
     with pytest.raises(FileNotFoundError):
         factory.create_trainer(real)
+
+
+SCAFFOLD_CONFIGS = sorted((REPO / "config" / "scaffold_gs").glob("*.yaml"))
+
+
+@pytest.mark.parametrize("path", SCAFFOLD_CONFIGS, ids=[p.stem for p in SCAFFOLD_CONFIGS])
+def test_factory_builds_scaffold_trainer(path, tmp_path, monkeypatch):
+    """Every ScaffoldConfig field the factory maps equals utils.py's, on
+    every shipped scaffold config. The synthetic scene builds both trainers
+    (the same anchors); mipnerf360 and custom read /data, so there both
+    factories get an empty dataset and utils.py's trainer is captured at its
+    construction (the config only)."""
+    from dogs_tpu.fields import scaffold as jscaffold
+    from dogs_tpu_torch.fields import scaffold as tscaffold
+
+    overrides = [f"root_dir={tmp_path}", "trainer.enable_tensorboard=false", "seed=7"]
+    t = tconfig.load_config(str(path), cli_overrides=overrides + ["device=cpu"])
+    j = jconfig.load_config(str(path), cli_overrides=overrides)
+    synthetic_scene = t.dataset.name == "synthetic"
+    if not synthetic_scene:
+        empty = dict(train_cameras=[], train_images=[], val_cameras=[], val_images=[],
+                     points=np.zeros((0, 3), np.float32), colors=np.zeros((0, 3), np.float32))
+        monkeypatch.setattr(j_utils, "_build_dataset", lambda config: empty)
+        monkeypatch.setattr(factory, "_build_dataset", lambda config, device: empty)
+        def captured(scaffold_cfg, **_):
+            return SimpleNamespace(cfg=scaffold_cfg)
+
+        for module in (jscaffold, factory):
+            monkeypatch.setattr(module, "ScaffoldGSTrainer", captured)
+    jt, _, _ = j_utils.create_trainer(j)
+    tt, _, _ = factory.create_trainer(t)
+    assert tt.cfg == factory._scaffold_config(t)
+    for f in tscaffold.ScaffoldConfig.__dataclass_fields__:
+        assert getattr(tt.cfg, f) == getattr(jt.cfg, f), f
+    assert tt.cfg.k_offsets == int(t.anchor.n_offsets) and tt.cfg.mlp_lr_init == 2e-3
+    if synthetic_scene:
+        assert isinstance(tt, tscaffold.ScaffoldGSTrainer) and tt.state.capacity == jt.state.alive.shape[0]
+        assert int(tt.state.num_alive) == int(jt.state.num_alive) > 0
+        assert tt.raster_cfg.max_tiles_per_gaussian == jt.raster_cfg.max_tiles_per_gaussian
 
 
 def test_config_from_dicts_needs_no_yaml(monkeypatch):

@@ -34,10 +34,11 @@ def test_every_module_imports_without_jax():
         "names = [m.name for m in pkgutil.walk_packages(dogs_tpu_torch.__path__, 'dogs_tpu_torch.')]\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
-        "assert len(names) >= 46, names\n"
+        "assert len(names) >= 48, names\n"
         "new = {'dogs_tpu_torch.data.colmap', 'dogs_tpu_torch.data.reader', 'dogs_tpu_torch.fields.appearance',\n"
         "       'dogs_tpu_torch.data.blocks', 'dogs_tpu_torch.data.splitter', 'dogs_tpu_torch.preprocess',\n"
-        "       'dogs_tpu_torch.parallel.admm', 'dogs_tpu_torch.parallel.master', 'dogs_tpu_torch.train_admm'}\n"
+        "       'dogs_tpu_torch.parallel.admm', 'dogs_tpu_torch.parallel.master', 'dogs_tpu_torch.train_admm',\n"
+        "       'dogs_tpu_torch.fields.scaffold'}\n"
         "assert new <= set(names), names\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'dogs_tpu', 'yaml', 'PIL', 'imageio'))\n"
@@ -87,6 +88,9 @@ def test_every_device_parameter_defaults_to_the_card():
                          "dogs_tpu_torch.preprocess.synthetic_block_scene",
                          "dogs_tpu_torch.train_admm.load_val_split"}
     assert admm_entry_points <= set(found), sorted(admm_entry_points - set(found))
+    scaffold_entry_points = {f"dogs_tpu_torch.fields.scaffold.{name}" for name in (
+        "ScaffoldGSTrainer.__init__", "init_scaffold", "scaffold_params_from_numpy", "scaffold_state_from_arrays")}
+    assert scaffold_entry_points <= set(found), sorted(scaffold_entry_points - set(found))
 
 
 def test_kernel_entry_point_raises_on_cpu_and_render_takes_plain_path():
