@@ -35,12 +35,47 @@ class Camera:
         return -(self.R * self.t[:, None]).sum(dim=0)
 
     @property
+    def world_to_camera(self) -> torch.Tensor:
+        """(4, 4) view matrix."""
+        m = torch.eye(4, dtype=self.R.dtype, device=self.R.device)
+        m[:3, :3] = self.R
+        m[:3, 3] = self.t
+        return m
+
+    @property
+    def camera_to_world(self) -> torch.Tensor:
+        """(4, 4) inverse of the view matrix: [R^T | camera_center]."""
+        m = torch.eye(4, dtype=self.R.dtype, device=self.R.device)
+        m[:3, :3] = self.R.T
+        m[:3, 3] = self.camera_center
+        return m
+
+    @property
     def tan_half_fov_x(self) -> torch.Tensor:
         return 0.5 * self.width / self.fx
 
     @property
     def tan_half_fov_y(self) -> torch.Tensor:
         return 0.5 * self.height / self.fy
+
+    def downsample(self, factor: float) -> "Camera":
+        """Rescaled copy for the coarse-to-fine schedule: round(size /
+        factor) pixels in each axis (at least 1), the intrinsics scaled by
+        new / old in that axis; pose, near, far and image_index kept."""
+        new_w = max(int(round(self.width / factor)), 1)
+        new_h = max(int(round(self.height / factor)), 1)
+        sx, sy = new_w / self.width, new_h / self.height
+        return dataclasses.replace(self, fx=self.fx * sx, fy=self.fy * sy, cx=self.cx * sx, cy=self.cy * sy,
+                                   width=new_w, height=new_h)
+
+    def project(self, xyz_world: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """World points (..., 3) -> pixel coordinates (..., 2) and camera
+        depth (...,), with R applied as elementwise products and sums."""
+        p_cam = (xyz_world[..., None, :] * self.R).sum(dim=-1) + self.t
+        z = p_cam[..., 2]
+        u = self.fx * p_cam[..., 0] / z + self.cx
+        v = self.fy * p_cam[..., 1] / z + self.cy
+        return torch.stack([u, v], dim=-1), z
 
 
 def make_camera(

@@ -1,8 +1,9 @@
 """COLMAP model reader/writer (cameras / images / points3D, bin + txt).
 
-Port of dogs_tpu/data/colmap.py, numpy only (the native C helper of
-dogs_tpu/data/native.py is not used). Binary layouts follow the COLMAP
-documentation:
+Port of dogs_tpu/data/colmap.py. `read_images_bin` and `read_points3d_bin`
+take the native C parser (data/native.py) when its library loads, as
+dogs_tpu's do, and their numpy path otherwise; each logs which one read the
+file. Binary layouts follow the COLMAP documentation:
   cameras.bin : [n:u64] then per camera [id:i32, model:i32, w:u64, h:u64,
                 params:f64 x model_n_params]
   images.bin  : [n:u64] then per image [id:i32, qvec:4xf64, tvec:3xf64,
@@ -11,17 +12,22 @@ documentation:
   points3D.bin: [n:u64] then per point [id:u64, xyz:3xf64, rgb:3xu8,
                 error:f64, track_len:u64, (image_id:i32, p2d_idx:i32) x len]
 
-`read_points3d_bin` walks only the track lengths in Python and reads the
-fixed fields of every point with one gather over their offsets.
+The numpy `read_points3d_bin` walks only the track lengths in Python and
+reads the fixed fields of every point with one gather over their offsets.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 import os
 import struct
 
 import numpy as np
+
+from dogs_tpu_torch.data import native
+
+logger = logging.getLogger(__name__)
 
 # model_id -> (name, num_params)
 CAMERA_MODELS = {
@@ -132,6 +138,15 @@ def read_cameras_bin(path: str) -> dict[int, ColmapCamera]:
 
 
 def read_images_bin(path: str) -> dict[int, ColmapImage]:
+    lib = native.load()
+    logger.info("%s: read by the %s parser", path, "native" if lib else "numpy")
+    if lib is not None:
+        return {iid: ColmapImage(iid, q, t, cid, name) for iid, q, t, cid, name in native.read_images_bin(lib, path)}
+    return read_images_bin_numpy(path)
+
+
+def read_images_bin_numpy(path: str) -> dict[int, ColmapImage]:
+    """`read_images_bin` without the native parser."""
     with open(path, "rb") as f:
         r = _Reader(f.read())
     (n,) = r.read("Q")
@@ -155,6 +170,15 @@ _TRACK_LEN_AT = _POINT_HEAD.itemsize
 
 def read_points3d_bin(path: str) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """(xyz float64 (P, 3), rgb uint8 (P, 3), error float64 (P,))."""
+    lib = native.load()
+    logger.info("%s: read by the %s parser", path, "native" if lib else "numpy")
+    if lib is not None:
+        return native.read_points3d_bin(lib, path)
+    return read_points3d_bin_numpy(path)
+
+
+def read_points3d_bin_numpy(path: str) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """`read_points3d_bin` without the native parser."""
     with open(path, "rb") as f:
         data = f.read()
     (n,) = struct.unpack_from("<Q", data, 0)

@@ -19,7 +19,9 @@ of f32 algorithm varies from run to run: on an NVIDIA H100 80GB HBM3 at
 CPU's at 96x80 (the bar is 2e-3), others 1.8e-6 to 2.6e-6. PyTorch's own
 im2col + cuBLAS convolution is f32-exact there every time and faster at
 1152x864, 10.6 against 14.7 ms forward and backward (chip_smoke.py phase
-6f; PERF.md).
+6f; PERF.md). The two bilinear resizes run as matmuls with
+`F.interpolate`'s weights, so that the mask's backward, and with it a
+train step, gives the same bits on every run on the card.
 """
 
 from __future__ import annotations
@@ -107,6 +109,25 @@ def _pixel_shuffle(x: torch.Tensor, r: int = 2) -> torch.Tensor:
     return x.reshape(b, c_out, h * r, w * r)
 
 
+def _resize_weights(n_in: int, n_out: int, antialias: bool, like: torch.Tensor) -> torch.Tensor:
+    """(n_out, n_in) weights of `F.interpolate`'s bilinear resize along one
+    axis (align_corners=False), read off by resizing the identity (two
+    columns wide: the antialiased resize of a one-wide image weighs
+    otherwise), in `like`'s dtype on its device."""
+    eye = torch.eye(n_in, dtype=like.dtype, device=like.device)[None, :, :, None].expand(1, n_in, n_in, 2)
+    out = F.interpolate(eye, size=(n_out, 2), mode="bilinear", align_corners=False, antialias=antialias)
+    return out[0, :, :, 0].T
+
+
+def _resize(x: torch.Tensor, h: int, w: int, antialias: bool = False) -> torch.Tensor:
+    """(B, C, H, W) -> (B, C, h, w) bilinear, as `F.interpolate` weighs it,
+    applied as two matmuls: their backward is deterministic on the card,
+    where `F.interpolate`'s bilinear backward adds with atomics."""
+    wy = _resize_weights(x.shape[-2], h, antialias, x)
+    wx = _resize_weights(x.shape[-1], w, antialias, x)
+    return torch.matmul(wy, torch.matmul(x, wx.T))
+
+
 def apply_appearance(params: dict, image: torch.Tensor, image_index: int) -> torch.Tensor:
     """Render (H, W, 3) -> multiplicative mask (H, W, 3), centred at 1. An
     `image_index` past the embedding's rows reads its last row, as
@@ -114,7 +135,7 @@ def apply_appearance(params: dict, image: torch.Tensor, image_index: int) -> tor
     h, w, _ = image.shape
     hd, wd = max(h // DOWNSAMPLE, 1), max(w // DOWNSAMPLE, 1)
     x = image.permute(2, 0, 1)[None]
-    ds = F.interpolate(x, size=(hd, wd), mode="bilinear", align_corners=False, antialias=True)
+    ds = _resize(x, hd, wd, antialias=True)
     embed = params["embed"]
     e = embed[min(int(image_index), embed.shape[0] - 1)]
     x = torch.cat([ds, e[None, :, None, None].expand(1, EMBED_DIM, hd, wd)], dim=1)
@@ -122,7 +143,7 @@ def apply_appearance(params: dict, image: torch.Tensor, image_index: int) -> tor
     for i in range(UPSTAGES):
         x = torch.relu(_pixel_shuffle(_conv(x, params[f"up{i}"])))
     x = _conv(x, params["head"])
-    x = F.interpolate(x, size=(h, w), mode="bilinear", align_corners=False)
+    x = _resize(x, h, w)
     # Residual around identity: the regularizer mean((mask-1)^2) pulls to 1.
     return 1.0 + x[0].permute(1, 2, 0)
 

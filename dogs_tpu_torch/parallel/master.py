@@ -24,6 +24,11 @@ own device, through three phases:
     Gaussians, updates the duals and returns the residuals, and the host
     adapts rho until stop_adapt_iter (master:336-377).
 
+With coarse-to-fine on, every block takes master step s at the factor
+`schedule.training_resolution(s)`, on its downsampled camera, against GT
+resized in f32 and then encoded at admm.gt_dtype, streamed through the GT
+cache (the resident images serve factor 1 only), as dogs_tpu stages it.
+
 Not carried from dogs_tpu, by design: chained dispatch (`chain_steps` is
 accepted and ignored: each master step is B step calls and the host events
 after it, the same event steps as dogs_tpu's event-aligned chunks), the
@@ -51,6 +56,7 @@ import torch
 from dogs_tpu_torch.core.camera import Camera
 from dogs_tpu_torch.core.gaussians import PARAM_NAMES, GaussianParams, round_up_capacity
 from dogs_tpu_torch.data.blocks import BlockPartition, block_dir, load_block, points_in_bounds2d_f32
+from dogs_tpu_torch.data.dataset import resize_image
 from dogs_tpu_torch.data.reader import LazyImageList
 from dogs_tpu_torch.eval.metrics import color_correct
 from dogs_tpu_torch.fields.lightgaussian import calculate_v_imp_score, prune_gaussians, prune_list
@@ -295,7 +301,7 @@ class MasterTrainer:
         # growth signal).
         self._pending_overflow: list[tuple[int, int, torch.Tensor]] = []
         self._last_overflow: list[torch.Tensor] | None = None
-        self._gt_cache: OrderedDict[tuple[int, int], torch.Tensor] = OrderedDict()
+        self._gt_cache: OrderedDict[tuple[int, int, int], torch.Tensor] = OrderedDict()
         self._gt_cache_bytes = 0
         self._gt_pool = [self._resident_gt(k) for k in range(b)]
 
@@ -308,7 +314,8 @@ class MasterTrainer:
         """Block kb's GT images as one (I, H, W, 3) tensor of gt_dtype on its
         device, when admm.gt_resident is on, they share one shape and fit
         admm.gt_resident_max_bytes; else None (they stream through the GT
-        cache). A LazyImageList read in full here is closed."""
+        cache). A LazyImageList read in full here is closed, unless
+        coarse-to-fine is on: its factors above 1 stream from it."""
         images = self.block_images[kb]
         if not self.admm_cfg.gt_resident or not len(images):
             return None
@@ -325,32 +332,38 @@ class MasterTrainer:
                 logger.info("block %d: non-uniform image shapes; GT images stream", kb)
                 return None
             stack[i] = encode_gt(im, self._gt_np_dtype)
-        if isinstance(images, LazyImageList):
+        if isinstance(images, LazyImageList) and not self.cfg.coarse_to_fine:  # c2f reads them again
             images.close()
         logger.info("block %d: %d GT images resident at %dx%d %s (%.0f MB)", kb, len(images), first.shape[1],
                     first.shape[0], self.admm_cfg.gt_dtype, nbytes / 1e6)
         return torch.as_tensor(stack, device=self.devices[kb])
 
-    def _gt(self, kb: int, i: int) -> torch.Tensor:
-        """Block kb's GT image i as float32 on its device: stored at gt_dtype
-        (resident or in the LRU cache) and decoded x 1/255 as dogs_tpu's step
-        decodes it."""
+    def _gt(self, kb: int, i: int, res: int = 1) -> torch.Tensor:
+        """Block kb's GT image i at coarse-to-fine factor `res` as float32 on
+        its device: stored at gt_dtype and decoded x 1/255 as dogs_tpu's
+        step decodes it. The resident pool serves res == 1 only; otherwise
+        the image streams through the LRU cache keyed (kb, i, res), resized
+        in f32 to the downsampled camera's size first and encoded second
+        (dogs_tpu's _gt_stream_cached)."""
         pool = self._gt_pool[kb]
-        if pool is not None:
+        key = (kb, i, res)
+        if pool is not None and res == 1:
             enc = pool[i]
+        elif key in self._gt_cache:
+            enc = self._gt_cache[key]
+            self._gt_cache.move_to_end(key)
         else:
-            enc = self._gt_cache.get((kb, i))
-            if enc is None:
-                arr = encode_gt(np.asarray(self.block_images[kb][i], np.float32), self._gt_np_dtype)
-                enc = torch.as_tensor(arr, device=self.devices[kb])
-                if self.cfg.gt_cache_bytes:
-                    self._gt_cache[(kb, i)] = enc
-                    self._gt_cache_bytes += enc.nbytes
-                    while self._gt_cache_bytes > self.cfg.gt_cache_bytes:
-                        _, old = self._gt_cache.popitem(last=False)
-                        self._gt_cache_bytes -= old.nbytes
-            else:
-                self._gt_cache.move_to_end((kb, i))
+            arr = np.asarray(self.block_images[kb][i], np.float32)
+            if res > 1:
+                cam = self.block_cameras[kb][i].downsample(res)
+                arr = resize_image(arr, cam.width, cam.height)
+            enc = torch.as_tensor(encode_gt(arr, self._gt_np_dtype), device=self.devices[kb])
+            if self.cfg.gt_cache_bytes:
+                self._gt_cache[key] = enc
+                self._gt_cache_bytes += enc.nbytes
+                while self._gt_cache_bytes > self.cfg.gt_cache_bytes:
+                    _, old = self._gt_cache.popitem(last=False)
+                    self._gt_cache_bytes -= old.nbytes
         if enc.dtype == torch.uint8:
             return enc.to(torch.float32) * (1.0 / 255.0)
         return enc
@@ -371,6 +384,10 @@ class MasterTrainer:
     def active_sh_degree(self, step: int) -> int:
         return schedule.active_sh_degree(self.cfg, step)
 
+    def training_resolution(self, step: int) -> int:
+        """Coarse-to-fine factor, the single-device trainer's schedule."""
+        return schedule.training_resolution(self.cfg, step)
+
     def _step_fn(self, active_sh_degree: int):
         key = (active_sh_degree, self.admm_enabled)
         if key not in self._step_fns:
@@ -386,21 +403,25 @@ class MasterTrainer:
         if not self._cam_order[kb]:
             self._cam_order[kb] = [int(i) for i in self.rng.permutation(len(self.block_cameras[kb]))]
             images = self.block_images[kb]
-            if self._gt_pool[kb] is None and isinstance(images, LazyImageList):
+            streams = self._gt_pool[kb] is None or self.training_resolution(self.step + 1) > 1
+            if streams and isinstance(images, LazyImageList):
                 images.hint(list(reversed(self._cam_order[kb])))
         return self._cam_order[kb].pop()
 
     def train_step(self) -> list[dict]:
         """One master step: each block's train step (with the penalty in
         the ADMM phase), then the host events. Returns each block's metrics
-        (0-d device tensors)."""
+        (0-d device tensors). Every block trains at the master step's
+        coarse-to-fine factor, on its downsampled camera."""
         step_fn = self._step_fn(self.active_sh_degree(self.step + 1))
+        res = self.training_resolution(self.step + 1)
         metrics = []
         for kb, blk in enumerate(self.blocks):
             i = self._next_camera(kb)
-            gt = self._gt(kb, i)
+            gt = self._gt(kb, i, res)
+            cam = self.block_cameras[kb][i]
             extra = (blk.u, blk.z_local, self._rho_dev[kb]) if self.admm_enabled else ()
-            blk.train, m = step_fn(blk.train, self.block_cameras[kb][i], gt, *extra)
+            blk.train, m = step_fn(blk.train, cam.downsample(res) if res > 1 else cam, gt, *extra)
             metrics.append(m)
         self.step += 1
         self._host_events()

@@ -152,3 +152,15 @@ def project_gaussians(
     return ProjectedGaussians(
         means2d=means2d, depth=z, conic=conic, color=color, opacity=opacity, radius=radius
     )
+
+
+def gaussian_alpha(conic: torch.Tensor, opacity: torch.Tensor, means2d: torch.Tensor,
+                   pixel_xy: torch.Tensor) -> torch.Tensor:
+    """Per-(Gaussian, pixel) alpha of the blend's inner loop. Shapes
+    broadcast: conic (..., 3), opacity (...,), means2d (..., 2), pixel_xy
+    (..., 2) -> alpha (...,), clamped to <= 0.99 and to 0 below 1/255."""
+    d = pixel_xy - means2d
+    power = -0.5 * (conic[..., 0] * d[..., 0] * d[..., 0] + conic[..., 2] * d[..., 1] * d[..., 1]) \
+        - conic[..., 1] * d[..., 0] * d[..., 1]
+    alpha = torch.clamp(opacity * torch.exp(torch.clamp(power, max=0.0)), max=0.99)
+    return torch.where(alpha < ALPHA_MIN, 0.0, alpha)

@@ -28,7 +28,7 @@ import torch.nn.functional as F
 from dogs_tpu_torch.core.camera import Camera, make_camera
 from dogs_tpu_torch.core.gaussians import GaussianParams
 from dogs_tpu_torch.core.sh import C0
-from dogs_tpu_torch.core.transforms import so3_exp
+from dogs_tpu_torch.core.transforms import rotmat_to_quat, so3_exp
 from dogs_tpu_torch.data import colmap
 from dogs_tpu_torch.data.synthetic import bench_scene
 from dogs_tpu_torch.raster.tiled import RasterConfig, render_tiled
@@ -43,25 +43,6 @@ SHADING = 0.05  # amplitude of the smooth multiplicative field
 ROT_NOISE, TRANS_NOISE = 3e-4, 3e-4  # pose noise, radians and scene units
 POINT_JITTER = 0.01  # of the points3D positions around the model's means
 CLI_GAUSSIANS, CLI_IMAGES, CLI_WIDTH, CLI_HEIGHT = 20000, 17, 288, 216  # the CLI's scene
-
-
-def _quat_wxyz(R: np.ndarray) -> np.ndarray:
-    """Rotation matrix -> unit quaternion (w, x, y, z), Shepperd's method."""
-    tr = np.trace(R)
-    if tr > 0:
-        s = 2.0 * np.sqrt(tr + 1.0)
-        q = [0.25 * s, (R[2, 1] - R[1, 2]) / s, (R[0, 2] - R[2, 0]) / s, (R[1, 0] - R[0, 1]) / s]
-    else:
-        i = int(np.argmax(np.diag(R)))
-        j, k = (i + 1) % 3, (i + 2) % 3
-        s = 2.0 * np.sqrt(1.0 + R[i, i] - R[j, j] - R[k, k])
-        q = [0.0] * 4
-        q[0] = (R[k, j] - R[j, k]) / s
-        q[1 + i] = 0.25 * s
-        q[1 + j] = (R[j, i] + R[i, j]) / s
-        q[1 + k] = (R[k, i] + R[i, k]) / s
-    q = np.asarray(q)
-    return q / np.linalg.norm(q)
 
 
 def scene_cameras(n: int) -> list[tuple[np.ndarray, np.ndarray]]:
@@ -140,7 +121,7 @@ def write_scene(root: str, params: GaussianParams, cameras: list[Camera]) -> dic
         name = f"frame_{i:03d}.png"
         write_png(os.path.join(image_dir, name),
                   torch.clamp(big * 255.0 + 0.5, 0, 255).to(torch.uint8).cpu().numpy(), level=1)
-        images[i + 1] = colmap.ColmapImage(i + 1, _quat_wxyz(R), t, 1, name)
+        images[i + 1] = colmap.ColmapImage(i + 1, rotmat_to_quat(torch.as_tensor(R)).numpy(), t, 1, name)
     s = float(UPSAMPLE)
     colmap.write_cameras_bin(os.path.join(model_dir, "cameras.bin"), {1: colmap.ColmapCamera(
         1, "OPENCV", w * UPSAMPLE, h * UPSAMPLE, np.array([fx * s, fy * s, cx * s, cy * s, K1, 0.0, 0.0, 0.0]))})

@@ -21,7 +21,9 @@ def c2f_interval(cfg) -> int:
 
 
 def training_resolution(cfg, step: int) -> int:
-    """Coarse-to-fine downsample factor (8 -> 4 -> 2 -> 1)."""
+    """Coarse-to-fine downsample factor: 4 below c2f_interval, 2 below twice
+    it, then 1 (dogs_tpu's docstring says 8 -> 4 -> 2 -> 1; its code, which
+    both packages run, never gives 8)."""
     if not cfg.coarse_to_fine:
         return 1
     return 2 ** max(3 - step // c2f_interval(cfg) - 1, 0)

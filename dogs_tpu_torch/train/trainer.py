@@ -16,9 +16,13 @@ growth in power-of-two buckets, the opacity reset, the LightGaussian
 importance prune (fields/lightgaussian.py), validation, logging and
 checkpoints (train/checkpoint.py writes dogs_tpu's format). The block
 trainer of parallel/master.py runs the same step with the ADMM penalty
-(`make_train_step(admm=True)`). Not ported yet, and raising
-`NotImplementedError` where they would change the result: coarse-to-fine
-and the profiler hooks (ROADMAP.md queue 1, item 7).
+(`make_train_step(admm=True)`). Coarse-to-fine (`coarse_to_fine`) trains
+step s at the downsampled camera of `schedule.training_resolution` against
+the GT resized on the host (`data/dataset.py:resize_image`), cached per
+(image, factor). The profiler hooks (`profile_num_steps` > 0) trace
+`profile_num_steps` steps from `max(profile_start_step, 1)` with
+`torch.profiler` and write a Chrome trace (`*.json`) to `profile_dir`
+(dogs_tpu writes an XLA trace directory).
 
 The per-image state (exposure, pose deltas, the mask's embedding) has one
 row per train camera and is indexed by the camera's `image_index`, which
@@ -37,6 +41,7 @@ import contextlib
 import dataclasses
 import logging
 import math
+import os
 import time
 from collections import OrderedDict
 from typing import Callable, Sequence
@@ -47,6 +52,7 @@ import torch
 from dogs_tpu_torch.core.camera import Camera
 from dogs_tpu_torch.core.gaussians import PARAM_NAMES, GaussianParams, pad_to_capacity, round_up_capacity
 from dogs_tpu_torch.core.transforms import matmul3, se3_exp
+from dogs_tpu_torch.data.dataset import resize_image
 from dogs_tpu_torch.eval.metrics import color_correct
 from dogs_tpu_torch.fields import appearance
 from dogs_tpu_torch.fields.lightgaussian import calculate_v_imp_score, prune_gaussians, prune_list
@@ -109,7 +115,7 @@ class TrainerConfig:
     densify_grad_threshold: float = 2e-4
     min_opacity: float = 0.005
     size_threshold: float = 20.0
-    coarse_to_fine: bool = False  # True raises (ROADMAP item 7)
+    coarse_to_fine: bool = False  # train at factors 4 -> 2 -> 1 (train/schedule.py)
     # prune block (LightGaussian): prune after each step in prune_iterations,
     # the i-th by prune_decay**i * prune_percent of the alive Gaussians
     prune_iterations: tuple = ()
@@ -145,8 +151,8 @@ class TrainerConfig:
     # already reads binning's sizes from the card every step, so the read
     # costs no pipeline drain worth a delayed densify (ROADMAP.md §3).
     reactive_capacity_growth: bool = False
-    # Device profiling: profile_num_steps > 0 raises (item 7); the start
-    # step and the directory are parsed from configs only, read by nothing yet.
+    # Profiling: trace profile_num_steps steps from max(profile_start_step, 1)
+    # into a Chrome trace under profile_dir; 0 = off.
     profile_start_step: int = 0
     profile_num_steps: int = 0
     profile_dir: str = "profile"
@@ -173,18 +179,6 @@ class TrainState:
     pose_nu: torch.Tensor
 
 
-def _check_supported(cfg: TrainerConfig) -> None:
-    if cfg.coarse_to_fine:
-        raise NotImplementedError(
-            "coarse_to_fine is not ported to dogs_tpu_torch yet (ROADMAP.md queue 1, item 7)"
-        )
-    if cfg.profile_num_steps > 0:
-        raise NotImplementedError(
-            "profile_num_steps > 0: the profiler hooks are not ported to dogs_tpu_torch yet "
-            "(ROADMAP.md queue 1, item 7)"
-        )
-
-
 def compute_nerf_plus_plus_norm(cameras: Sequence[Camera]) -> float:
     """Scene extent = 1.1 * max camera distance from the camera centroid."""
     centers = np.stack([c.camera_center.detach().cpu().numpy() for c in cameras])
@@ -202,7 +196,6 @@ def train_state_from_model(model: GaussianModelState, n_images: int, cfg: Traine
     builds one: zero moments, step 0, max(n_images, 1) rows of identity
     exposure and zero pose deltas, and the mask CNN's initial parameters
     when it is on."""
-    _check_supported(cfg)
     device = model.params.xyz.device
     n = max(n_images, 1)
     exposure = torch.eye(3, 4, device=device).repeat(n, 1, 1)
@@ -309,7 +302,6 @@ def make_train_step(
     `u` and `z_local` map parameter names to (C, ...) tensors and `rho` to
     0-d float32 tensors on the model's device; they are constants to
     autograd. The loss metric includes the penalty."""
-    _check_supported(cfg)
     lrs_fn, exposure_lr_fn = make_lr_schedules(cfg, spatial_lr_scale)
 
     def train_step(ts: TrainState, camera: Camera, gt: torch.Tensor, *admm_in):
@@ -512,7 +504,6 @@ class GaussianSplatTrainer:
     ):
         if len(cameras) != len(images):
             raise ValueError(f"{len(cameras)} cameras but {len(images)} images")
-        _check_supported(cfg)
         self.device = torch.device(device)
         self.cameras = list(cameras)
         self.images = images if hasattr(images, "hint") else list(images)
@@ -535,7 +526,7 @@ class GaussianSplatTrainer:
         self._step_fns: dict[int, Callable] = {}
         self._order: list[int] = []
         self.metrics_history: list[dict] = []
-        self._gt_cache: OrderedDict[int, torch.Tensor] = OrderedDict()
+        self._gt_cache: OrderedDict[tuple[int, int], torch.Tensor] = OrderedDict()
         self._gt_cache_bytes = 0
         # Overflow of the densify events since the last drain (0-d device
         # tensors, read at the log cadence) and of the last event (the
@@ -545,6 +536,10 @@ class GaussianSplatTrainer:
 
     def active_sh_degree(self, step: int) -> int:
         return schedule.active_sh_degree(self.cfg, step)
+
+    def training_resolution(self, step: int) -> int:
+        """Coarse-to-fine downsample factor of step `step` (1 when off)."""
+        return schedule.training_resolution(self.cfg, step)
 
     def _step_fn(self, active_sh_degree: int) -> Callable:
         if active_sh_degree not in self._step_fns:
@@ -563,15 +558,24 @@ class GaussianSplatTrainer:
                 self.images.hint([int(i) for i in reversed(self._order)])
         return int(self._order.pop())
 
-    def _gt_on_device(self, idx: int) -> torch.Tensor:
-        """GT image `idx` on the device, through the LRU cache."""
-        gt = self._gt_cache.get(idx)
+    def _gt_on_device(self, idx: int, res: int = 1) -> torch.Tensor:
+        """GT image `idx` at coarse-to-fine factor `res` on the device,
+        through the LRU cache keyed (idx, res). At res > 1 the image is
+        resized on the host to the downsampled camera's size
+        (`resize_image`, 8-bit as dogs_tpu's)."""
+        key = (idx, res)
+        gt = self._gt_cache.get(key)
         if gt is not None:
-            self._gt_cache.move_to_end(idx)
+            self._gt_cache.move_to_end(key)
             return gt
-        gt = _as_image(self.images[idx], self.device)
+        img = self.images[idx]
+        if res > 1:
+            cam = self.cameras[idx].downsample(res)
+            img = img.detach().cpu().numpy() if torch.is_tensor(img) else np.asarray(img, np.float32)
+            img = resize_image(img, cam.width, cam.height)
+        gt = _as_image(img, self.device)
         if self.cfg.gt_cache_bytes:
-            self._gt_cache[idx] = gt
+            self._gt_cache[key] = gt
             self._gt_cache_bytes += gt.nbytes
             while self._gt_cache_bytes > self.cfg.gt_cache_bytes:
                 _, old = self._gt_cache.popitem(last=False)
@@ -655,13 +659,15 @@ class GaussianSplatTrainer:
 
     # ---- main loop -----------------------------------------------------------
     def train_iteration(self, step: int) -> dict:
-        """Take training step `step` (1-based), then its host events (densify,
-        opacity reset, LightGaussian prune)."""
+        """Take training step `step` (1-based) at its coarse-to-fine factor,
+        then its host events (densify, opacity reset, LightGaussian prune)."""
+        res = self.training_resolution(step)
         with torch.no_grad():
             idx = self._next_camera()
-            gt = self._gt_on_device(idx)
+            gt = self._gt_on_device(idx, res)
+        cam = self.cameras[idx].downsample(res) if res > 1 else self.cameras[idx]
         step_fn = self._step_fn(self.active_sh_degree(step))
-        self.state, metrics = step_fn(self.state, self.cameras[idx], gt)
+        self.state, metrics = step_fn(self.state, cam, gt)
         self._maybe_densify(step)
         self._maybe_reset_opacity(step)
         self._maybe_lightgaussian_prune(step)
@@ -685,15 +691,29 @@ class GaussianSplatTrainer:
         a tensor, a host max for binning's sizes, which the step has read
         already). Every `validate_every` steps the val split is scored;
         every `checkpoint_every` steps a checkpoint goes to
-        `checkpoint_manager`.
+        `checkpoint_manager`. With `profile_num_steps` > 0 the steps from
+        max(profile_start_step, 1) on, `profile_num_steps` of them, run
+        under `torch.profiler` (CPU, and CUDA on the card), each in a
+        `train_step_<step>` span; the device is synchronized before the
+        trace stops and its Chrome trace goes to `profile_dir`.
         Returns the last step's metrics."""
-        n = num_iterations or self.cfg.max_iterations
+        cfg = self.cfg
+        n = num_iterations or cfg.max_iterations
         start = self.state.step
         t0 = time.time()
         metrics = {}
         window_max: dict = {}
+        trace_from = max(cfg.profile_start_step, 1) if cfg.profile_num_steps > 0 else None
+        prof, trace_until = None, 0
         for step in range(start + 1, start + n + 1):
-            metrics = self.train_iteration(step)
+            if step == trace_from:
+                prof, trace_until = self._start_profiler(), step + cfg.profile_num_steps
+            traced = prof is not None
+            with torch.profiler.record_function(f"train_step_{step}") if traced else contextlib.nullcontext():
+                metrics = self.train_iteration(step)
+            if traced and step + 1 >= trace_until:
+                self._stop_profiler(prof, trace_from, step)
+                prof = None
             for k in WINDOW_MAX_KEYS:
                 v = metrics[k]
                 if k in window_max:
@@ -719,8 +739,30 @@ class GaussianSplatTrainer:
                         tensorboard_writer.add_scalar("val/psnr", val["val_psnr"], step)
             if checkpoint_every and checkpoint_manager and step % checkpoint_every == 0:
                 self.save_checkpoint(checkpoint_manager)
+        if prof is not None:  # the run ended inside the traced window
+            self._stop_profiler(prof, trace_from, start + n)
         self._drain_overflow()
         return metrics
+
+    def _start_profiler(self) -> torch.profiler.profile:
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(activities=activities)
+        prof.start()
+        return prof
+
+    def _stop_profiler(self, prof: torch.profiler.profile, first_step: int, last_step: int) -> str:
+        """Synchronize, stop the trace and write it as a Chrome trace under
+        profile_dir; returns its path."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.stop()
+        os.makedirs(self.cfg.profile_dir, exist_ok=True)
+        path = os.path.join(self.cfg.profile_dir, f"trace_steps_{first_step}_{last_step}.json")
+        prof.export_chrome_trace(path)
+        logger.info("profiler trace written to %s", path)
+        return path
 
     # ---- checkpointing --------------------------------------------------------
     def save_checkpoint(self, manager) -> str:

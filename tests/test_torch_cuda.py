@@ -2,7 +2,8 @@
 segment sum) against their plain PyTorch versions on the card, the
 LightGaussian importance render and the Scaffold-GS render and step through
 them, and the densify surgery, LPIPS, the windowed KNN, the appearance mask
-CNN and the Scaffold-GS decode on the card against the CPU. Every test here needs a CUDA
+CNN and the Scaffold-GS decode on the card against the CPU. The kernel
+scenes include a coarse-to-fine frame with a partial tile row. Every test here needs a CUDA
 device and skips without one. The file imports no JAX, so it runs on a machine with the card alone:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
@@ -48,6 +49,11 @@ SCENES = {
     "non_aligned_200x130": (
         lambda: synthetic.random_scene_arrays(n=400, seed=5),
         dict(synthetic.RANDOM_SCENE_VIEW, width=200, height=130, fx=120.0, fy=120.0), 2,
+    ),
+    # A coarse-to-fine frame at factor 4 of 1152x864: 13.5 tile rows.
+    "partial_row_288x216": (
+        lambda: synthetic.random_scene_arrays(n=600, seed=6),
+        dict(synthetic.RANDOM_SCENE_VIEW, width=288, height=216, fx=170.0, fy=170.0), 2,
     ),
 }
 
@@ -332,16 +338,27 @@ def test_windowed_knn_on_card_matches_cpu(cuda):
     torch.testing.assert_close(got, mean_knn_dist_sq(pts, valid), rtol=1e-6, atol=0)
 
 
-def test_appearance_mask_on_card_matches_cpu_with_tf32_off(cuda):
+@pytest.mark.parametrize("hw", [(80, 96), (432, 576)], ids=["96x80", "576x432"])
+def test_appearance_mask_on_card_matches_cpu_with_tf32_off(hw, cuda, monkeypatch):
     """The mask CNN's forward (1e-5 of the max) and its parameter and input
     gradients (2e-3 of each leaf's max) on the card against the CPU, the
-    convolutions and their backward in exact f32 (`exact_f32`), at 96x80,
-    and the settings restored after."""
+    convolutions and their backward in exact f32 (`exact_f32`), at 96x80
+    and at a coarse-to-fine frame (576x432: an antialiased x32 downsample
+    to 18x13 at a ratio of 33.2), and the settings restored after. The CPU
+    takes the card's ReLU branch (each ReLU input's sign recorded on the
+    card): an input within f32 rounding of 0 may take the other branch on
+    either device and move a gradient by ~1e-2 of its leaf's max."""
     arrays = appearance.init_appearance_arrays(4)
     g = torch.Generator().manual_seed(0)
-    img, cot = torch.rand((80, 96, 3), generator=g), torch.randn((80, 96, 3), generator=g)
+    img, cot = torch.rand(hw + (3,), generator=g), torch.randn(hw + (3,), generator=g)
+    relu, branch = torch.relu, []
     out = {}
-    for dev in ("cpu", cuda):
+    for dev in (cuda, "cpu"):
+        if dev == "cpu":
+            patterns = iter(branch)
+            monkeypatch.setattr(torch, "relu", lambda z: z * next(patterns).to(z.dtype))
+        else:
+            monkeypatch.setattr(torch, "relu", lambda z: branch.append((z > 0).cpu()) or relu(z))
         params = appearance.appearance_params_from_numpy(arrays, dev)
         x = img.to(dev).requires_grad_(True)
         before = (torch.backends.cudnn.enabled, torch.backends.cudnn.allow_tf32,
@@ -352,6 +369,7 @@ def test_appearance_mask_on_card_matches_cpu_with_tf32_off(cuda):
         assert (torch.backends.cudnn.enabled, torch.backends.cudnn.allow_tf32,
                 torch.backends.cuda.matmul.allow_tf32) == before
         out[str(dev)] = [mask.detach().cpu()] + [gr.cpu() for gr in grads]
+    monkeypatch.setattr(torch, "relu", relu)
     (cpu_mask, *cpu_grads), (card_mask, *card_grads) = out["cpu"], out[str(cuda)]
     torch.testing.assert_close(card_mask, cpu_mask, rtol=0, atol=1e-5 * float(cpu_mask.abs().max()))
     for a, b in zip(card_grads, cpu_grads):

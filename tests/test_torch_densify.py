@@ -519,14 +519,6 @@ def test_resume_from_another_device_type_reseeds_the_split_noise(tmp_path, caplo
     assert torch.equal(resumed.noise_gen.get_state(), tt.noise_gen.get_state())
 
 
-@pytest.mark.parametrize("field", ["coarse_to_fine", "profile_num_steps"])
-def test_unported_host_features_raise(field):
-    cfg = ttrainer.TrainerConfig(**{field: 1})
-    with pytest.raises(NotImplementedError, match="item 7"):
-        ttrainer.GaussianSplatTrainer([], [], np.zeros((4, 3), np.float32), np.zeros((4, 3), np.float32), cfg,
-                                      device="cpu")
-
-
 def test_cli_trains_writes_a_checkpoint_and_resumes(tmp_path, caplog):
     args = ["--config", str(REPO / "config" / "gaussian_splatting" / "synthetic_smoke.yaml"),
             "device=cpu", "trainer.max_iterations=3", "trainer.n_tensorboard=1", "trainer.n_validation=2",
