@@ -49,8 +49,9 @@ in phases:
               PSNR must recover after it); a checkpoint after step 20 resumed
               in a fresh trainer for steps 21-30 must match the uninterrupted
               run (n_alive equal, parameters within 1e-5 of each leaf's max)
-  6c. densify bench.py --densify's run at full width: 500k points, GT from a
-              second bench scene at SH 0, 150 steps with a densify event
+  6c. densify bench.py --densify's run at full width, built by
+              dogs_tpu_torch.bench: 500k points, GT from a second bench scene
+              at SH 0, 150 steps with a densify event
               every 25 (K1, K2, K3 once a step; loss falls; n_alive changes;
               every overflow logged; no NaN in alive slots); at the inputs of
               the first step after the first event (its camera, the model with
@@ -172,6 +173,27 @@ in phases:
               (20 steps), its resume ("nothing to do") and the eval CLI
               (uncorrected: val PSNR within 1e-4 dB of the final validate(),
               PNGs, .splat, the .ply read back, trajectory frames)
+  6j. bench   every mode of python -m dogs_tpu_torch.bench called in this
+              process at bench.py's widths (dogs_tpu_torch/bench.py): the
+              headline (500k, 16 + 48 steps), --scaling (0.5M-4M) and
+              --consensus at bench.py's counts; --quality and --quality-admm
+              (1x1) cut to BENCH_QUALITY_STEPS with densify from 200 (events
+              at 300-500; the master's fusion at 600 and consensus rounds at
+              800-1200), --scaffold-quality cut to BENCH_SCAFFOLD_QUALITY_STEPS,
+              on bench.py's GT (its teacher under dogs_tpu's bin budget);
+              --densify at cadence 100, --admm and --scaffold shortened
+              (BENCH_*_WINDOWS / INTERVALS: 6c and 6h run those workloads in
+              full through the same builders); each line's keys (bench.py's
+              plus device and peak_mib), a finite value, vs_baseline null, the
+              card's nvidia-smi line as its device; the loss falls in every
+              training mode and the final val PSNR beats the step-0
+              validation in the quality modes; each mode's launches counted
+              from 0 and equal to one of each kernel a step (block step,
+              importance render) plus one K1 a GT and a val frame
+              (`bench_launches`), added to the kernels line; then, outside
+              the counts, K1-K3 and one step's gradients against plain (6c's
+              bars) at the inputs of --scaling's 4M step 25 (its 24 steps
+              taken again) and of the --quality run's next step
   7. report   per-kernel JSON line (time, plain time, bound, share, library
               call time), then the device JSON line (last line)
 
@@ -255,6 +277,15 @@ SCAFFOLD_CONFIG = "config/scaffold_gs/synthetic_smoke.yaml"
 SCAFFOLD_EVERY, SCAFFOLD_RESUME = 100, 10
 SCAFFOLD_STEPS, SCAFFOLD_EVENTS = 3 * SCAFFOLD_EVERY, (2 * SCAFFOLD_EVERY, 3 * SCAFFOLD_EVERY)
 SCAFFOLD_WINDOW = (SCAFFOLD_EVERY * 3 // 2 + 1, SCAFFOLD_EVERY * 27 // 10)
+# Phase 6j: bench.py's quality runs cut from 6000 / 3000 steps, densify from
+# 200 so that three events (300-500) and, for the master, the fusion at 600
+# and three consensus rounds fall inside.
+BENCH_QUALITY_STEPS, BENCH_DENSIFY_START, BENCH_SCAFFOLD_QUALITY_STEPS = 1200, 200, 600
+# --densify (cadence 100), --admm and --scaffold shortened: 6c and 6h run the
+# first and the last in full through the same builders. Warm-up and timed
+# steps (--admm: consensus intervals of 200 steps); --densify keeps an event
+# in each window, --scaffold its first anchor event.
+BENCH_DENSIFY_WINDOWS, BENCH_ADMM_INTERVALS, BENCH_SCAFFOLD_WINDOWS = (100, 100), (1, 1), (100, 20)
 
 
 class SmokeFailure(RuntimeError):
@@ -333,11 +364,155 @@ def native_parser_times(path: str) -> tuple[float, float, int]:
     return native_s, numpy_s, n
 
 
+def bench_launches(mode: str, views: int = 40, val_views: int = 2) -> tuple[int, int]:
+    """The (K1, K2 = K3) launches that each of 6j's runs must make: one of
+    each kernel a training step (block step, importance render), one K1 a GT
+    render (the quality scene's `views`, bench.py's 8 teacher frames) and a
+    val frame (`val_views` at step 0, at each VAL_EVERY boundary before the
+    end, and at the end)."""
+    from dogs_tpu_torch.bench import VAL_EVERY
+
+    def vals(steps):
+        return val_views * (2 + len(range(VAL_EVERY, steps, VAL_EVERY)))
+
+    steps, k1_only = {
+        "headline": (16 + 48, 0),
+        "--scaling": (4 * (8 + 16), 0),
+        "--densify --cadence 100": (sum(BENCH_DENSIFY_WINDOWS), 8),
+        "--quality": (BENCH_QUALITY_STEPS, views + vals(BENCH_QUALITY_STEPS)),
+        "--admm": (sum(BENCH_ADMM_INTERVALS) * 200, 0),
+        "--consensus": (0, 0),
+        # the fusion's post-merge prune: one importance render a train view
+        "--quality-admm": (BENCH_QUALITY_STEPS + views - val_views, views + vals(BENCH_QUALITY_STEPS)),
+        "--scaffold": (sum(BENCH_SCAFFOLD_WINDOWS), 8),
+        "--scaffold-quality": (BENCH_SCAFFOLD_QUALITY_STEPS, views + vals(BENCH_SCAFFOLD_QUALITY_STEPS)),
+    }[mode]
+    return steps + k1_only, steps
+
+
+def bench_phase(h) -> None:
+    """Phase 6j: each mode function of dogs_tpu_torch.bench in this process
+    at bench.py's widths, with the quality runs cut and --densify, --admm
+    and --scaffold shortened (module docstring). Each mode's launches are
+    counted from 0 and must be `bench_launches`'. After the counted runs,
+    K1-K3 and one step's gradients are held against plain at the inputs of
+    --scaling's largest N (its step 25, the run's 24 steps taken again) and
+    of the --quality run's next step. `h` carries main's helpers: dev, smi, counted, reset_counts,
+    add_counts, path_parity. The modes' JSON lines are printed here prefixed
+    "[bench]", so that the report's two lines stay the only bare JSON lines."""
+    import contextlib
+    import io
+
+    from dogs_tpu_torch import bench
+
+    dev, smi = h.dev, h.smi
+    runs = {
+        "headline": lambda: bench.bench_headline(device=dev),
+        "--scaling": lambda: bench.scaling_curve(device=dev),
+        "--densify --cadence 100": lambda: bench.bench_densify(cadence=100, warm=BENCH_DENSIFY_WINDOWS[0],
+                                                               timed=BENCH_DENSIFY_WINDOWS[1], device=dev),
+        "--quality": lambda: bench.bench_quality(steps=BENCH_QUALITY_STEPS, densify_start=BENCH_DENSIFY_START,
+                                                 device=dev),
+        "--admm": lambda: bench.bench_admm(warm_intervals=BENCH_ADMM_INTERVALS[0],
+                                           timed_intervals=BENCH_ADMM_INTERVALS[1], device=dev),
+        "--consensus": lambda: bench.bench_consensus(device=dev),
+        "--quality-admm": lambda: bench.bench_quality_admm(steps=BENCH_QUALITY_STEPS,
+                                                           densify_start=BENCH_DENSIFY_START, device=dev),
+        "--scaffold": lambda: bench.bench_scaffold(warm=BENCH_SCAFFOLD_WINDOWS[0], timed=BENCH_SCAFFOLD_WINDOWS[1],
+                                                   device=dev),
+        "--scaffold-quality": lambda: bench.bench_scaffold_quality(steps=BENCH_SCAFFOLD_QUALITY_STEPS, device=dev),
+    }
+    quality = {"--quality", "--quality-admm", "--scaffold-quality"}
+    bench_log = logging.getLogger(bench.__name__)
+    records: list[logging.LogRecord] = []
+    catcher = logging.Handler(logging.INFO)
+    catcher.emit = records.append
+    level = bench_log.level
+    bench_log.addHandler(catcher)
+    bench_log.setLevel(logging.INFO)
+    quality_trainer = bench.quality_trainer
+    captured = []  # the --quality run's trainer, for the parity after the runs
+
+    def capturing_trainer(*a, **kw):
+        captured.append(quality_trainer(*a, **kw))
+        return captured[-1]
+
+    bench.quality_trainer = capturing_trainer
+    seconds, launches = {}, {}
+    try:
+        for mode, run in runs.items():
+            records.clear()
+            out = io.StringIO()
+            h.reset_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                lines = run()
+            seconds[mode] = time.perf_counter() - t0
+            for text in out.getvalue().splitlines():
+                print(f"[bench] {text}")
+            launches[mode] = h.add_counts(f"bench {mode}", list(h.counted) if mode != "--consensus" else [])
+            k1, k23 = bench_launches(mode)
+            check(launches[mode] == {"blend_forward": k1, "blend_backward": k23, "sorted_segment_sum": k23},
+                  f"bench {mode}: launches {launches[mode]}, expected K1 {k1}, K2 and K3 {k23}")
+            messages = [r.getMessage() for r in records]
+            check(len(lines) == {"--scaling": 4, "--consensus": 3}.get(mode, 1),
+                  f"bench {mode}: {len(lines)} lines")
+            for line in lines:
+                check("error" not in line, f"bench {mode}: {line}")
+                check({"metric", "value", "unit", "vs_baseline", "device", "peak_mib"} <= set(line),
+                      f"bench {mode}: keys {sorted(line)}")
+                check(np.isfinite(line["value"]) and line["value"] > 0 and line["vs_baseline"] is None,
+                      f"bench {mode}: {line}")
+                check(line["device"] == smi and line["peak_mib"] > 0, f"bench {mode}: device or peak {line}")
+            if mode != "--consensus":
+                falls = [re.match(r"\S+: loss ([-+0-9.eE]+) -> ([-+0-9.eE]+)", m) for m in messages]
+                falls = [(float(f.group(1)), float(f.group(2))) for f in falls if f]
+                check(len(falls) == len(lines) and all(b < a for a, b in falls),
+                      f"bench {mode}: the loss did not fall: {falls}")
+            if mode in quality:
+                vals = [re.match(r"\S+: val psnr ([-+0-9.eE]+) at step (\d+)", m) for m in messages]
+                vals = [(int(v.group(2)), float(v.group(1))) for v in vals if v]
+                check(vals[0][0] == 0 and vals[-1][1] > vals[0][1] and round(vals[-1][1], 2) == lines[0]["value"],
+                      f"bench {mode}: val PSNR did not rise above the step-0 validation: {vals}")
+                print(f"[bench] {mode} val psnr by step: {vals}")
+    finally:
+        bench.quality_trainer = quality_trainer
+        bench_log.removeHandler(catcher)
+        bench_log.setLevel(level)
+    print(f"[bench] ({smi}) 9 modes in {sum(seconds.values()):.1f} s ("
+          + ", ".join(f"{m} {t:.1f}" for m, t in seconds.items()) + "); kernel launches "
+          + ", ".join(f"{m} {c['blend_forward']}/{c['blend_backward']}/{c['sorted_segment_sum']}"
+                      for m, c in launches.items()))
+
+    # Outside the counts: the kernels at the inputs these runs gave them. The
+    # --scaling run's 24 steps at its largest N are taken again, so that the
+    # parity holds at its step 25 (at step 1 the bench model's isotropic
+    # scales make the quat gradient zero but for rounding, and a bar scaled
+    # by the leaf's max would compare rounding noise with rounding noise).
+    t0 = time.perf_counter()
+    n_max, n_steps = 4_000_000, 8 + 16
+    ts, step_fn, cams, gts = bench.headline_workload(n_max, device=dev)
+    for i in range(n_steps):
+        ts, _ = step_fn(ts, cams[i % 8], gts[i % 8])
+    h.path_parity(f"--scaling {n_max // 1000}k step {n_steps + 1} inputs", ts.model, cams[n_steps % 8],
+                  gts[n_steps % 8], 3, tag="bench")
+    del ts, step_fn, cams, gts
+    torch.cuda.empty_cache()
+    tr = captured[0]
+    step = tr.state.step + 1
+    i = tr._order[-1] if tr._order else 0
+    h.path_parity(f"--quality step {step} inputs", tr.state.model, tr.cameras[i], tr._gt_on_device(i),
+                  tr.active_sh_degree(step), tag="bench")
+    del captured[:], tr
+    print(f"[bench] parity at the bench's inputs: {time.perf_counter() - t0:.1f} s")
+
+
 def scaffold_phase(h) -> None:
     """Phase 6h: Scaffold-GS, bench.py --scaffold's run at full width, then
     the scaffold CLIs. `h` carries main's helpers: dev, smi, counted,
     reset_counts, add_counts, check_segment_sum, random_cot, run_cli,
     max_err."""
+    from dogs_tpu_torch import bench
     from dogs_tpu_torch.data import synthetic
     from dogs_tpu_torch.fields import scaffold as sc
     from dogs_tpu_torch.fields.appearance import exact_f32
@@ -345,7 +520,7 @@ def scaffold_phase(h) -> None:
     from dogs_tpu_torch.raster import blend, reduce
     from dogs_tpu_torch.raster.binning import build_tile_bins
     from dogs_tpu_torch.raster.projection import project_gaussians
-    from dogs_tpu_torch.raster.tiled import RasterConfig, entry_matrix, render_tiled
+    from dogs_tpu_torch.raster.tiled import RasterConfig, entry_matrix
     from dogs_tpu_torch.train.checkpoint import CheckpointManager
     from dogs_tpu_torch.utils import png
 
@@ -354,16 +529,12 @@ def scaffold_phase(h) -> None:
     cams = synthetic.bench_cameras(8, device=dev)
     kcfg = RasterConfig(max_tiles_per_gaussian=BENCH_MT)
     kplain = dataclasses.replace(kcfg, use_kernel=False)
-    with torch.no_grad():
-        teacher = synthetic.bench_scene(n, seed=7, device=dev)
-        gts = [render_tiled(teacher, c, kcfg, active_sh_degree=0).image for c in cams]
-        del teacher
-    points = synthetic.bench_scene_arrays(n, seed=0)["xyz"]
-    scfg = sc.ScaffoldConfig(voxel_size=0.2, stat_start_iter=1, densify_start_iter=SCAFFOLD_EVERY,
-                             densify_end_iter=10**6, densification_interval=SCAFFOLD_EVERY)
+    # bench.py --scaffold's workload as dogs_tpu_torch.bench builds it.
+    gts = bench.teacher_gts(n, cams, dev)
+    scfg = bench.scaffold_config(SCAFFOLD_EVERY)
 
     def new_trainer():
-        return sc.ScaffoldGSTrainer(cams, gts, points, raster_cfg=kcfg, scaffold_cfg=scfg, device=dev)
+        return bench.scaffold_trainer(cams, gts, scfg, n, dev)
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -764,7 +935,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; nothing was run", file=sys.stderr)
         return 1
 
-    from dogs_tpu_torch import factory, kernels, train_admm
+    from dogs_tpu_torch import bench, factory, kernels, train_admm
     from dogs_tpu_torch.core import look_at_camera, params_from_numpy
     from dogs_tpu_torch.core.gaussians import PARAM_NAMES, GaussianParams
     from dogs_tpu_torch.data import colmap, native, synthetic
@@ -1255,23 +1426,15 @@ def main() -> int:
     del loop, resumed
 
     # ---- 6c. densify (main path 4): the host loop at full width ------------
-    # bench.py --densify's run: 500k points of the bench scene (colours 0.5)
-    # fitting renders of a second bench scene (seed 7) at SH 0, densify every
-    # 25 steps from step 1, capacity grown as the trainer's protocol says.
-    with torch.no_grad():
-        teacher = synthetic.bench_scene(n, seed=7, device=dev)
-        dense_gts = [render_tiled(teacher, c, kcfg, active_sh_degree=0).image for c in cams]
-        del teacher
-    dcfg = trainer_mod.TrainerConfig(densify_start_iter=1, densify_end_iter=10**6,
-                                     densification_interval=DENSIFY_EVERY, opacity_reset_interval=10**6,
-                                     spatial_lr_scale=5.0)
+    # bench.py --densify's run as dogs_tpu_torch.bench builds it: 500k points
+    # of the bench scene (colours 0.5) fitting renders of a second bench scene
+    # (seed 7) at SH 0, densify every 25 steps from step 1, capacity grown as
+    # the trainer's protocol says.
+    dense_gts = bench.teacher_gts(n, cams, dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    dloop = trainer_mod.GaussianSplatTrainer(
-        cams, dense_gts, synthetic.bench_scene_arrays(n, seed=0)["xyz"], np.full((n, 3), 0.5, np.float32),
-        dcfg, kcfg, device=dev,
-    )
+    dloop = bench.densify_trainer(cams, dense_gts, bench.densify_config(DENSIFY_EVERY), n, dev)
     torch.cuda.synchronize()
     init_s, init_peak_mb = time.perf_counter() - t0, torch.cuda.max_memory_allocated(dev) / 2**20
     print(f"[densify] ({smi}) trainer from {n:,} points (windowed Morton KNN scales): {init_s:.2f} s, "
@@ -1660,8 +1823,8 @@ def main() -> int:
         check(len(colmap_model.images) == SCENE_IMAGES and colmap_model.points_xyz.shape == (n, 3),
               f"real scene: COLMAP model of {len(colmap_model.images)} images, {colmap_model.points_xyz.shape} points")
         del colmap_model
-        scene_args = [f"dataset.root_dir={os.path.join(tmp, 'data')}", "dataset.multi_blocks=false",
-                      "dataset.factor=2", "appearance.use_trained_exposure=true", "optimizer.lr.pose=1e-4",
+        scene_args = [f"dataset.root_dir={os.path.join(tmp, 'data')}", "dataset.factor=2",
+                      "appearance.use_trained_exposure=true", "optimizer.lr.pose=1e-4",
                       "geometry.opt_pose_start_iter=10", f"root_dir={os.path.join(tmp, 'out')}",
                       "trainer.enable_tensorboard=false"]
 
@@ -1827,8 +1990,10 @@ def main() -> int:
               "real scene: the checkpoint does not reload bit for bit")
         n_mask_leaves = sum(k.startswith(".mask_params/") for k in a)
         del reloaded, a, b
-        log, scene_eval_s = run_cli("dogs_tpu_torch.eval", "--scene", SCENE_NAME, *scene_args, "eval.n_test_poses=2",
-                                    config=SCENE_CONFIG)
+        # The eval CLI routes the block-parallel config to a fused block
+        # checkpoint unless told this one is a single device's (as eval.py).
+        log, scene_eval_s = run_cli("dogs_tpu_torch.eval", "--scene", SCENE_NAME, *scene_args,
+                                    "dataset.multi_blocks=false", "eval.n_test_poses=2", config=SCENE_CONFIG)
         with open(os.path.join(tmp, "out", SCENE_EXPNAME, "eval", "val", "metrics.json")) as f:
             scene_eval = json.load(f)["mean"]
         check(abs(scene_eval["psnr"] - val40) <= 1e-4,
@@ -2334,6 +2499,10 @@ def main() -> int:
     scaffold_phase(SimpleNamespace(dev=dev, smi=smi, counted=counted, reset_counts=reset_counts,
                                    add_counts=add_counts, check_segment_sum=check_segment_sum,
                                    random_cot=random_cot, run_cli=run_cli, max_err=max_err))
+
+    # ---- 6j. the bench's modes (main path 14) --------------------------------
+    bench_phase(SimpleNamespace(dev=dev, smi=smi, counted=counted, reset_counts=reset_counts, add_counts=add_counts,
+                                path_parity=path_parity))
 
     # ---- 7. report ---------------------------------------------------------
     sources = {

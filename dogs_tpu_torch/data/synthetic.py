@@ -1,7 +1,7 @@
 """Synthetic Gaussian scenes for tests, the smoke run and benchmarks.
 
-Port of dogs_tpu/data/synthetic.py plus the numpy body of bench.py's scene
-(`bench_scene`, `_bench_cameras`). Every array is drawn with numpy's
+Port of dogs_tpu/data/synthetic.py plus the numpy body of bench.py's scenes
+(`bench_scene`, `_bench_cameras`, the teacher of `_quality_scene`). Every array is drawn with numpy's
 `RandomState` in the same order as the JAX package draws it, so a seed gives
 the same pre-activation arrays in both packages (the `*_arrays` functions
 return them, for feeding both sides of a parity test).
@@ -128,9 +128,50 @@ def bench_scene(n: int = BENCH_GAUSSIANS, seed: int = 0, device: torch.device | 
     return params_from_numpy(bench_scene_arrays(n, seed), device)
 
 
-def bench_cameras(n_cams: int = 8, device: torch.device | str = "cuda") -> list[Camera]:
+def quality_teacher_arrays(n_teacher: int) -> dict[str, np.ndarray]:
+    """The teacher of bench.py's quality workload (`_quality_scene`), drawn
+    from RandomState(7) in its order: a SURFACE, a bumpy ground plane
+    (y = -1.4 + bumps, x and z in [-2.5, 2.5]) and a sphere shell of radius
+    ~1.2, with smooth procedural colour (the sphere's by its normal), SH
+    degree 3 with zero rest, splat scales of 2-6 px at 1152x864 / f 900 for
+    200k points (scaled with the sampling density)."""
+    rng_t = np.random.RandomState(7)
+    n_pl = n_teacher // 2
+    n_sp = n_teacher - n_pl
+    px = rng_t.uniform(-2.5, 2.5, n_pl)
+    pz = rng_t.uniform(-2.5, 2.5, n_pl)
+    py = -1.4 + 0.15 * np.sin(2.3 * px) * np.cos(1.7 * pz)
+    plane = np.stack([px, py, pz], -1)
+    plane_rgb = np.stack(
+        [
+            0.5 + 0.4 * np.sin(3.1 * px) * np.sin(2.2 * pz),
+            0.5 + 0.35 * np.cos(2.9 * pz),
+            0.45 + 0.3 * np.sin(1.3 * px + 2.1 * pz),
+        ],
+        -1,
+    )
+    d = rng_t.randn(n_sp, 3)
+    d /= np.linalg.norm(d, axis=1, keepdims=True) + 1e-9
+    sphere = d * (1.2 + 0.05 * np.sin(5.0 * d[:, :1]) * np.cos(4.0 * d[:, 1:2]))
+    sphere_rgb = 0.5 + 0.45 * d
+    t_rgb = np.clip(np.concatenate([plane_rgb, sphere_rgb]), 0.02, 0.98)
+    s_lo = 0.008 * np.sqrt(200_000 / n_teacher)
+    return dict(
+        xyz=np.concatenate([plane, sphere]).astype(np.float32),
+        feat_dc=_rgb_to_sh(t_rgb)[:, None, :],
+        feat_rest=np.zeros((n_teacher, 15, 3), np.float32),
+        log_scale=np.log(rng_t.uniform(s_lo, s_lo * 3.1, (n_teacher, 3))).astype(np.float32),
+        quat=rng_t.randn(n_teacher, 4).astype(np.float32),
+        logit_opacity=_logit(rng_t.uniform(0.55, 0.95, (n_teacher, 1))),
+    )
+
+
+def bench_cameras(n_cams: int = 8, device: torch.device | str = "cuda", width: int = BENCH_WIDTH,
+                  height: int = BENCH_HEIGHT) -> list[Camera]:
     """bench.py's cameras: looking into the scene box from slightly different
-    angles (~±4.5 deg yaw), 1152x864, f = 1000."""
+    angles (~±4.5 deg yaw), 1152x864, f = 1000; at another width the focal
+    scales with it (the same field of view, for small test frames)."""
+    focal = 1000.0 * width / BENCH_WIDTH
     cams = []
     for i in range(n_cams):
         a = (i - n_cams / 2) * 0.02
@@ -141,9 +182,8 @@ def bench_cameras(n_cams: int = 8, device: torch.device | str = "cuda") -> list[
         rx = np.array([[1, 0, 0], [0, cb, -sb], [0, sb, cb]])
         cams.append(
             make_camera(
-                R=ry @ rx, t=np.zeros(3), fx=1000.0, fy=1000.0,
-                cx=BENCH_WIDTH / 2, cy=BENCH_HEIGHT / 2,
-                width=BENCH_WIDTH, height=BENCH_HEIGHT, image_index=i, device=device,
+                R=ry @ rx, t=np.zeros(3), fx=focal, fy=focal, cx=width / 2, cy=height / 2,
+                width=width, height=height, image_index=i, device=device,
             )
         )
     return cams

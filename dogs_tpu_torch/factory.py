@@ -7,10 +7,11 @@ tensorboard_writer) from a resolved config (utils/config.py), keyed on
 and on COLMAP scenes (every other `dataset.name`: data/dataset.py
 `load_scene` under <dataset.root_dir>/<dataset.scene>, the train split
 streamed through a `LazyImageList`). A block-parallel ADMM config
-(`dataset.multi_blocks`) raises `NotImplementedError`: it trains through
-`python -m dogs_tpu_torch.train_admm` (parallel/master.py). The config key
-`device` (default "cuda") places the trainer; `device=cpu` runs the plain
-PyTorch paths.
+(`dataset.multi_blocks`) builds the single-device trainer of the whole
+scene, as the reference utils.py does (it never reads the key); its blocks
+train through `python -m dogs_tpu_torch.train_admm` (parallel/master.py).
+The config key `device` (default "cuda") places the trainer; `device=cpu`
+runs the plain PyTorch paths.
 """
 
 from __future__ import annotations
@@ -191,11 +192,8 @@ def create_trainer(config):
     set and tensorboardX imports, else None."""
     field_type = config.get("neural_field_type", "gs")
     if bool(config.dataset.get("multi_blocks", False)):
-        raise NotImplementedError(
-            "dataset.multi_blocks: block-parallel ADMM trains with python -m dogs_tpu_torch.train_admm "
-            "(after python -m dogs_tpu_torch.preprocess); set dataset.multi_blocks=false to train the scene "
-            "on one device"
-        )
+        logger.info("dataset.multi_blocks: training the whole scene on one device; its blocks train with "
+                    "python -m dogs_tpu_torch.train_admm (after python -m dogs_tpu_torch.preprocess)")
     device = config.get("device", "cuda")
     raster_cfg = _raster_config(config)
     data = _build_dataset(config, device)

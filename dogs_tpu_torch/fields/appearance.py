@@ -67,6 +67,13 @@ def appearance_params_from_numpy(arrays: dict, device: torch.device | str = "cud
     }
 
 
+def init_appearance_params(num_images: int, rng: np.random.RandomState | None = None,
+                           device: torch.device | str = "cuda") -> dict:
+    """dogs_tpu's initial parameters (`init_appearance_arrays`) as tensors on
+    `device` that require grad."""
+    return appearance_params_from_numpy(init_appearance_arrays(num_images, rng), device)
+
+
 def flatten(params: dict, prefix: str = "") -> dict[str, torch.Tensor]:
     """The leaves of a parameter tree keyed by their `jax.tree_util` path
     string (`['conv_in']/['b']`, ...) in JAX's flattening order (sorted keys)."""

@@ -176,3 +176,13 @@ def build_tile_bins(
         num_valid=int(sorted_idx.shape[0]),
         num_truncated=int(truncated.sum()),
     )
+
+
+def bins_membership(bins: TileBins, n_gaussians: int) -> torch.Tensor:
+    """(n_tiles, N) bool: which Gaussians were binned to each tile. Lets the
+    dense oracle (raster/reference.py, `tile_membership`) give each Gaussian
+    exactly the tiles the tiled path blends it in."""
+    n_tiles = bins.tile_starts.shape[0] - 1
+    member = torch.zeros((n_tiles, n_gaussians), dtype=torch.bool, device=bins.sorted_idx.device)
+    member[bins.sorted_tile.long(), bins.sorted_idx.long()] = True
+    return member

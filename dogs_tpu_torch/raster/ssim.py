@@ -71,3 +71,8 @@ def ssim_map(
 def ssim(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11) -> torch.Tensor:
     """Mean SSIM."""
     return ssim_map(img1, img2, window_size).mean()
+
+
+def dssim_loss(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
+    """1 - SSIM, the structural term of the 3DGS photometric loss."""
+    return 1.0 - ssim(pred, gt)

@@ -9,9 +9,10 @@ Per-scene loop over `dataset.scene`: builds the trainer with
 final checkpoint and logs the final validation. `device=cpu` runs on the
 CPU (the default is the card). Trains the synthetic scene and COLMAP scenes
 (every shipped gaussian_splatting and scaffold_gs config; PNG images on a
-machine without PIL) on one device; `dataset.multi_blocks` (block-parallel
-ADMM, trained by `python -m dogs_tpu_torch.train_admm`) raises
-`NotImplementedError` from the factory.
+machine without PIL) on one device; a `dataset.multi_blocks` config
+(block-parallel ADMM, whose blocks train with `python -m
+dogs_tpu_torch.train_admm`) trains its whole scene on one device, as
+train.py does.
 """
 
 from __future__ import annotations

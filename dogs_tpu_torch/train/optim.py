@@ -44,6 +44,17 @@ def exponential_lr(
     return lr
 
 
+def constant_lr(value: float):
+    """lr(step) = value at every step, a Python float."""
+    value = float(value)
+
+    def lr(step: int) -> float:
+        del step
+        return value
+
+    return lr
+
+
 @dataclasses.dataclass
 class SparseAdamState:
     """First and second moments, one tensor per parameter name."""

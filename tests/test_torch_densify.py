@@ -276,18 +276,53 @@ def test_config_and_factory_match_dogs_tpu(path):
         assert getattr(t_raster, f) == getattr(j_raster, f), f
 
 
-def test_factory_raises_for_unported_fields_and_datasets():
-    """Block-parallel ADMM scenes raise (ADMM names its own CLI, python -m
-    dogs_tpu_torch.train_admm); a COLMAP scene (dataset.name other than
+def test_factory_builds_admm_configs_on_one_device_and_reads_colmap_scenes(tmp_path):
+    """A block-parallel ADMM config (dataset.multi_blocks) builds the
+    single-device trainer of its whole scene, as utils.py does (its blocks
+    train with python -m dogs_tpu_torch.train_admm): urban3d_admm.yaml reads
+    its COLMAP scene like any other; a COLMAP scene (dataset.name other than
     synthetic) is built by load_scene, so a missing scene directory is a
     missing file."""
-    admm = tconfig.load_config(str(REPO / "config" / "gaussian_splatting" / "urban3d_admm.yaml"))
-    with pytest.raises(NotImplementedError, match="python -m dogs_tpu_torch.train_admm"):
-        factory.create_trainer(admm)
-    real = tconfig.load_config(str(REPO / "config" / "gaussian_splatting" / "mipnerf360.yaml"),
-                               cli_overrides=[f"dataset.root_dir={REPO / 'no_such_dir'}", "device=cpu"])
-    with pytest.raises(FileNotFoundError):
-        factory.create_trainer(real)
+    missing = [f"dataset.root_dir={REPO / 'no_such_dir'}", "device=cpu", f"root_dir={tmp_path}"]
+    smoke = tconfig.load_config(str(REPO / "config" / "gaussian_splatting" / "synthetic_admm_smoke.yaml"),
+                                cli_overrides=[f"root_dir={tmp_path}", "device=cpu"])
+    assert smoke.dataset.multi_blocks
+    trainer, _, _ = factory.create_trainer(smoke)
+    assert isinstance(trainer, ttrainer.GaussianSplatTrainer) and trainer.device == torch.device("cpu")
+    for name in ("urban3d_admm.yaml", "mipnerf360.yaml"):
+        real = tconfig.load_config(str(REPO / "config" / "gaussian_splatting" / name), cli_overrides=missing)
+        with pytest.raises(FileNotFoundError):
+            factory.create_trainer(real)
+
+
+def test_factory_matches_utils_on_an_admm_config(tmp_path):
+    """synthetic_admm_smoke.yaml (dataset.multi_blocks) through both
+    factories: the same 18 train cameras and their images (the forward bar:
+    each package renders its own), the same TrainerConfig and raster keys,
+    and the first step's metrics on the same images within the train step's
+    bar (tests/test_torch_train.py)."""
+    path = str(REPO / "config" / "gaussian_splatting" / "synthetic_admm_smoke.yaml")
+    overrides = [f"root_dir={tmp_path}", "trainer.enable_tensorboard=false"]
+    jt, _, _ = j_utils.create_trainer(jconfig.load_config(path, cli_overrides=overrides))
+    tt, _, _ = factory.create_trainer(tconfig.load_config(path, cli_overrides=overrides + ["device=cpu"]))
+    assert len(tt.cameras) == len(jt.cameras) == 18 and len(tt.val_cameras) == len(jt.val_cameras) == 2
+    for tc, jc in zip(tt.cameras + tt.val_cameras, jt.cameras + jt.val_cameras):
+        assert (tc.width, tc.height, tc.image_index) == (jc.width, jc.height, int(jc.image_index))
+        for f in ("R", "t", "fx", "fy", "cx", "cy"):
+            np.testing.assert_allclose(np_(getattr(tc, f)), np.asarray(getattr(jc, f)), rtol=1e-6, atol=1e-6,
+                                       err_msg=f)
+    for ti, ji in zip(list(tt.images) + tt.val_images, list(jt.images) + jt.val_images):
+        np.testing.assert_allclose(np_(ti), np.asarray(ji), atol=3e-4)  # tests/test_pallas_blend.py:32
+    for f in ttrainer.TrainerConfig.__dataclass_fields__:
+        if f != "reactive_capacity_growth":  # the port's own default (ROADMAP.md §3)
+            assert getattr(tt.cfg, f) == getattr(jt.cfg, f), f
+    for f in ("antialiasing", "depth_threshold", "max_tiles_per_gaussian"):
+        assert getattr(tt.raster_cfg, f) == getattr(jt.raster_cfg, f), f
+    np.testing.assert_array_equal(np_(tt.state.model.params.xyz), np.asarray(jt.state.model.params.xyz))
+    tt.images = [np.array(im) for im in jt.images]
+    tm, jm = tt.train_iteration(1), jt.train_iteration(1)
+    for k in ("loss", "l1", "ssim", "psnr"):
+        np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=1e-5, err_msg=k)
 
 
 SCAFFOLD_CONFIGS = sorted((REPO / "config" / "scaffold_gs").glob("*.yaml"))

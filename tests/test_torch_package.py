@@ -38,7 +38,7 @@ def test_every_module_imports_without_jax():
         "new = {'dogs_tpu_torch.data.colmap', 'dogs_tpu_torch.data.reader', 'dogs_tpu_torch.fields.appearance',\n"
         "       'dogs_tpu_torch.data.blocks', 'dogs_tpu_torch.data.splitter', 'dogs_tpu_torch.preprocess',\n"
         "       'dogs_tpu_torch.parallel.admm', 'dogs_tpu_torch.parallel.master', 'dogs_tpu_torch.train_admm',\n"
-        "       'dogs_tpu_torch.fields.scaffold'}\n"
+        "       'dogs_tpu_torch.fields.scaffold', 'dogs_tpu_torch.bench'}\n"
         "assert new <= set(names), names\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'dogs_tpu', 'yaml', 'PIL', 'imageio'))\n"

@@ -266,3 +266,108 @@ def test_anchor_at_the_camera_centre_gets_a_finite_gradient(scenes):
         scale = np.abs(want[k]).max()
         assert scale > 0, k
         np.testing.assert_allclose(got[k] / scale, want[k] / scale, atol=GRAD_ATOL, err_msg=k)
+
+
+def f32_neighbours(x: float, n: int) -> np.ndarray:
+    """The 2n + 1 float32 values around float32(x), in order."""
+    up, down = [np.float32(x)], [np.float32(x)]
+    for _ in range(n):
+        up.append(np.nextafter(up[-1], np.float32(np.inf)))
+        down.append(np.nextafter(down[-1], np.float32(-np.inf)))
+    return np.array(down[:0:-1] + up, np.float32)
+
+
+def exact_in_both(values_t: torch.Tensor, values_j, target: np.float32) -> np.ndarray:
+    return (np_(values_t) == target) & (np.asarray(values_j) == target)
+
+
+def test_clamp_ties_of_the_decode_differ_from_jax_only_at_the_tie_entries(scenes):
+    """A divergence by design, bounded: at an exact tie torch.clamp passes
+    the whole gradient, where jnp.clip and jnp.maximum pass half. The
+    opacity MLP's last-layer columns 1 and 3 are zero with biases whose tanh
+    is exactly 1e-4 and 1 - 1e-4 (the opacity clip's bounds) for every
+    anchor; the covariance MLP's scale column of offset 2, dim 1 is zero with
+    a bias such that base scale x sigmoid x 2 is exactly 1e-8 (the scale
+    floor) at three anchors. Under a fixed linear functional of every
+    decoded field, each gradient leaf equals JAX's at the usual bar except
+    at the entries these ties feed: the two opacity bias and weight columns
+    carry twice JAX's gradient; the scale column's bias, its weights and the
+    three anchors' log_scaling entries carry JAX's plus the half it drops,
+    0.5 x the functional's weight on the tied log-scale (x (1 - sigmoid)
+    through the bias)."""
+    jsc, tsc = scenes
+    arrays, alive = ts.init_scaffold_arrays(jsc.points, voxel_size=0.25, k_offsets=5)
+    arrays = warm(arrays, 4)
+    k = 5
+    k_lo, k_hi, k_s, d_s = 1, 3, 2, 1
+    col = k_s * 7 + d_s
+    ties = np.flatnonzero(alive)[[0, 7, 20]]
+    lo, hi, floor = np.float32(1e-4), np.float32(1.0 - 1e-4), np.float32(1e-8)
+
+    # Biases whose tanh is exactly each opacity bound in both packages.
+    cand = {t: f32_neighbours(np.arctanh(np.float64(t)), 64) for t in (lo, hi)}
+    pick = {t: c[exact_in_both(torch.tanh(torch.from_numpy(c)), jnp.tanh(jnp.asarray(c)), t)] for t, c in cand.items()}
+    assert all(len(p) for p in pick.values()), pick
+    # A log base scale x and a bias b with exp(x) sigmoid(b) 2 == 1e-8 in both.
+    xs = f32_neighbours(np.log(1e-8), 8)
+    bs = np.linspace(-1e-4, 1e-4, 4001).astype(np.float32)
+    prod_t = torch.exp(torch.from_numpy(xs))[:, None] * torch.sigmoid(torch.from_numpy(bs))[None, :] * 2.0
+    prod_j = jnp.exp(jnp.asarray(xs))[:, None] * jax.nn.sigmoid(jnp.asarray(bs))[None, :] * 2.0
+    i, j = np.argwhere(exact_in_both(prod_t, prod_j, floor))[0]
+    x_s, b_s = xs[i], bs[j]
+
+    w_op, b_op, w_cov, b_cov = ".mlp_opacity/['w1']", ".mlp_opacity/['b1']", ".mlp_cov/['w1']", ".mlp_cov/['b1']"
+    arrays[w_op][:, [k_lo, k_hi]] = 0.0
+    arrays[b_op][k_lo], arrays[b_op][k_hi] = pick[lo][0], pick[hi][0]
+    arrays[w_cov][:, col] = 0.0
+    arrays[b_cov][col] = b_s
+    arrays[".log_scaling"][ties, 3 + d_s] = x_s
+
+    cam_j, cam_t = jsc.cameras[2], tsc.cameras[2]
+    n = alive.size * k
+    rng = np.random.RandomState(9)
+    weights = {f: rng.uniform(-1.0, 1.0, shape).astype(np.float32)
+               for f, shape in (("xyz", (n, 3)), ("log_scale", (n, 3)), ("quat", (n, 4)), ("logit_opacity", (n, 1)),
+                                ("colors", (n, 3)))}
+
+    def j_functional(sp):
+        g, colors, _, aux = js.generate_neural_gaussians(sp, cam_j, alive=jnp.asarray(alive), with_aux=True)
+        fields = dict(xyz=g.xyz, log_scale=g.log_scale, quat=g.quat, logit_opacity=g.logit_opacity, colors=colors)
+        return sum(jnp.sum(jnp.asarray(weights[f]) * v) for f, v in fields.items()), aux
+
+    (_, jaux), jgrad = jax.value_and_grad(j_functional, has_aux=True)(j_params(arrays))
+    want = j_arrays(jgrad)
+    sp = ts.scaffold_params_from_numpy(arrays, "cpu")
+    g, colors, _, taux = ts.generate_neural_gaussians(sp, cam_t, alive=torch.from_numpy(alive), with_aux=True)
+    fields = dict(xyz=g.xyz, log_scale=g.log_scale, quat=g.quat, logit_opacity=g.logit_opacity, colors=colors)
+    total = sum((torch.from_numpy(weights[f]) * v).sum() for f, v in fields.items())
+    leaves = {key: v for key, v in sp.leaves().items() if v.numel()}
+    got = dict(zip(leaves, map(np_, torch.autograd.grad(total, list(leaves.values())))))
+
+    # The ties are where they were put, in both packages, and nowhere else.
+    for aux in (taux, jaux):
+        op, scale = np_(aux["neural_opacity"]), np_(aux["scale"])
+        assert (op[:, k_lo] == lo).all() and (op[:, k_hi] == hi).all()
+        assert ((op == lo) | (op == hi)).sum() == 2 * op.shape[0]
+        assert sorted(zip(*np.nonzero(scale == floor))) == [(a, k_s, d_s) for a in ties]
+    tied = {key: np.zeros(w.shape, bool) for key, w in want.items()}
+    tied[w_op][:, [k_lo, k_hi]] = tied[b_op][[k_lo, k_hi]] = True
+    tied[w_cov][:, col] = tied[b_cov][col] = True
+    tied[".log_scaling"][ties, 3 + d_s] = True
+    for key, w in want.items():
+        assert key in got or not w.size, key
+        if not w.size:
+            continue
+        scale = np.abs(w).max()
+        assert scale > 0, key
+        np.testing.assert_allclose(got[key][~tied[key]] / scale, w[~tied[key]] / scale, atol=GRAD_ATOL, err_msg=key)
+
+    # What JAX drops at each tie, exactly: half the gradient there.
+    assert np.abs(got[w_cov][:, col] - want[w_cov][:, col]).max() > GRAD_ATOL * np.abs(want[w_cov][:, col]).max()
+    np.testing.assert_allclose(got[b_op][[k_lo, k_hi]], 2.0 * want[b_op][[k_lo, k_hi]], rtol=RTOL)
+    np.testing.assert_allclose(got[w_op][:, [k_lo, k_hi]], 2.0 * want[w_op][:, [k_lo, k_hi]], rtol=RTOL, atol=ATOL)
+    dropped = 0.5 * weights["log_scale"][ties * k + k_s, d_s]
+    np.testing.assert_allclose(got[".log_scaling"][ties, 3 + d_s] - want[".log_scaling"][ties, 3 + d_s], dropped,
+                               rtol=RTOL, atol=ATOL)
+    sig = float(torch.sigmoid(torch.tensor(b_s)))
+    np.testing.assert_allclose(got[b_cov][col] - want[b_cov][col], dropped.sum() * (1.0 - sig), rtol=RTOL, atol=ATOL)
