@@ -14,9 +14,9 @@ densify events, opacity reset, capacity growth and checkpoints), the
 LightGaussian importance prune (one VJP through all three kernels per
 camera), export, the train and eval CLIs, real-scene training (a COLMAP
 scene through the data slice and the per-image loss terms), block-parallel
-ADMM, Scaffold-GS (anchors decoded per view by MLPs, rendered through
-the same three kernels), and coarse-to-fine training with the profiler,
-in phases:
+ADMM, coarse-to-fine training with the profiler, a JPEG scene read by the
+port's own codec, Scaffold-GS (anchors decoded per view by MLPs, rendered
+through the same three kernels) and the bench's modes, in phases:
 
   1. device   require CUDA; print the card's name and power limit
   2. build    compile the three kernels from dogs_tpu_torch/csrc with nvcc,
@@ -152,6 +152,24 @@ in phases:
               launches of each kernel per master step, block 0's kernels
               against plain at master step 1's inputs, the GT at factors 4
               and 2 streamed, factor 1 from the resident pools
+  6k. JPEG scene  6f's scene rendered again and written by
+              tools/colmap_scene.py as 17 JPEGs of 4608x3456 (Mill19 rubble's
+              size; images 0-8 at 4:2:0 and quality 95, 9-16 at 4:2:2 and
+              quality 90 with a restart marker every MCU row); the committed
+              fixture (tests/data/torch_jpeg) decoded by the port's JPEG
+              decoder within one level of PIL's decodes, its progressive file
+              rejected; one file of each subsampling decoded on one thread (ms,
+              MP/s); the factor-4 minify serial and on 8 threads (equal
+              caches); urban3d.yaml at factor 4 (1152x864) through python -m
+              dogs_tpu_torch.train for 30 steps, run by a wrapper that counts
+              the kernel launches in that process (K2 and K3 once a step, K1
+              once a step and once a val render) and times each step: loss
+              falls, val PSNR rises from the step-0 validation; time from the
+              launch to the end of step 1, ms/step, peak memory; K1-K3 and the
+              step's gradients against plain at the trained checkpoint's
+              inputs; python -m dogs_tpu_torch.eval: val PSNR within 1e-4 dB
+              of the final validate(), trajectory.gif of 30 frames parsed here
+              (GIF89a, NETSCAPE loop 0, delay 6-7 cs), its write timed
   6h. Scaffold-GS  bench.py --scaffold's run: anchors voxelized at 0.2
               from the 500k bench means (K = 10 offsets), GT from bench scene
               seed 7 at SH 0, the 8 bench cameras, max_tiles 12, 300
@@ -928,6 +946,276 @@ def scaffold_phase(h) -> None:
           f"{train_val:.6f}), resume {resume_s:.1f} s (nothing to do), eval {eval_s:.1f} s: val psnr "
           f"{cli_mean['psnr']:.6f} ssim {cli_mean['ssim']:.5f}, {n_points} decoded Gaussians exported (.splat "
           f"{splat} B, the .ply read back), {len(frames)} trajectory frames")
+
+
+# Phase 6k: 6f's scene written a second time as 4608x3456 JPEGs (Mill19
+# rubble's image size, x4 the bench width), trained with urban3d.yaml at its
+# factor 4 (1152x864) through the train and eval CLIs.
+JPEG_CONFIG = "config/gaussian_splatting/urban3d.yaml"
+JPEG_UPSAMPLE, JPEG_STEPS, JPEG_VAL_EVERY, JPEG_POSES = 4, 30, 15, 30
+JPEG_FIXTURE = "tests/data/torch_jpeg"  # PIL's JPEGs and PIL's decodes of them as PNG
+# Runs `python -m MODULE ARGS` in this process's child with the step, the
+# validation and the GIF writer timed and the kernel launches counted there;
+# prints them as one "[counted] {...}" line after the CLI returns.
+COUNTED_CLI = r"""
+import json, runpy, sys, time
+import torch
+from dogs_tpu_torch.raster import blend, reduce
+from dogs_tpu_torch.train.trainer import GaussianSplatTrainer
+from dogs_tpu_torch.utils import gif
+
+rec = {"step_ms": [], "val": [], "val_images": 0, "val0_s": 0.0, "gif_s": []}
+iteration, validate, write_gif = GaussianSplatTrainer.train_iteration, GaussianSplatTrainer.validate, gif.write_gif
+
+def counted_validate(self):
+    out = validate(self)
+    rec["val"].append(out.get("val_psnr"))
+    rec["val_images"] += len(self.val_cameras)
+    return out
+
+def timed_iteration(self, step):
+    if not rec["step_ms"]:  # the validation before the first step
+        t0 = time.perf_counter()
+        counted_validate(self)
+        rec["val0_s"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = iteration(self, step)
+    torch.cuda.synchronize()
+    rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+    if len(rec["step_ms"]) == 1:
+        rec["first_step_end"] = time.time()
+    return out
+
+def timed_gif(*args, **kwargs):
+    t0 = time.perf_counter()
+    write_gif(*args, **kwargs)
+    rec["gif_s"].append(time.perf_counter() - t0)
+
+GaussianSplatTrainer.train_iteration, GaussianSplatTrainer.validate = timed_iteration, counted_validate
+gif.write_gif = timed_gif
+sys.argv = sys.argv[1:]
+runpy.run_module(sys.argv[0], run_name="__main__", alter_sys=True)
+rec["launches"] = {fn.__name__: fn.launches for fn in (blend.blend_forward, blend.blend_backward,
+                                                       reduce.sorted_segment_sum)}
+rec["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+print("[counted] " + json.dumps(rec))
+"""
+
+
+def gif_summary(data: bytes) -> dict:
+    """Walk a GIF file's blocks: its size, NETSCAPE loop count and each
+    frame's delay (centiseconds)."""
+    check(data[:6] == b"GIF89a", "GIF: no GIF89a header")
+    w, h, packed = int.from_bytes(data[6:8], "little"), int.from_bytes(data[8:10], "little"), data[10]
+    pos = 13 + (3 << ((packed & 7) + 1) if packed & 0x80 else 0)
+    out = {"width": w, "height": h, "loop": None, "delays": []}
+    delay = None
+
+    def skip_sub_blocks(p):
+        while data[p]:
+            p += data[p] + 1
+        return p + 1
+
+    while data[pos] != 0x3B:
+        if data[pos] == 0x21:  # extension
+            label, size = data[pos + 1], data[pos + 2]
+            if label == 0xF9:
+                delay = int.from_bytes(data[pos + 4:pos + 6], "little")
+            elif label == 0xFF and data[pos + 3:pos + 14] == b"NETSCAPE2.0":
+                out["loop"] = int.from_bytes(data[pos + 16:pos + 18], "little")
+            pos = skip_sub_blocks(pos + 3 + size)
+        elif data[pos] == 0x2C:  # image descriptor, its palette and LZW data
+            check(int.from_bytes(data[pos + 5:pos + 7], "little") == w
+                  and int.from_bytes(data[pos + 7:pos + 9], "little") == h, "GIF: a frame of another size")
+            local = data[pos + 9]
+            n_pal = 2 << (local & 7) if local & 0x80 else 0
+            out["delays"].append(delay)
+            pos = skip_sub_blocks(pos + 10 + 3 * n_pal + 1)
+        else:
+            raise SmokeFailure(f"GIF: unexpected block 0x{data[pos]:02X} at byte {pos}")
+    return out
+
+
+def jpeg_phase(h) -> None:
+    """Phase 6k: the data layer's JPEG codec on a real-scene config. 6f's
+    scene rendered again and written by tools/colmap_scene.py as 17 JPEGs
+    of 4608x3456 (images 0-8 at 4:2:0 and quality 95, 9-16 at 4:2:2 and
+    quality 90 with a restart marker every MCU row); the committed fixture
+    decoded against PIL's decodes (this machine has no PIL); one file of
+    each subsampling decoded on one thread (ms, MP/s); the factor-4 minify
+    serial and on 8 threads (equal caches); urban3d.yaml trained for
+    JPEG_STEPS steps by `python -m dogs_tpu_torch.train` (K1-K3 once a
+    step, counted in its process; loss falls, val PSNR rises; time to the
+    first step, ms/step, peak memory), K1-K3 and the step's gradients
+    against plain at the trained model's inputs, then `python -m
+    dogs_tpu_torch.eval` (val PSNR within 1e-4 dB of the final validate(),
+    a JPEG_POSES-frame trajectory.gif parsed here: header, loop 0, frame
+    count, delay 6-7 cs). `h` carries main's helpers: dev, smi, root,
+    params, counted, reset_counts, add_counts, path_parity."""
+    from dogs_tpu_torch import factory
+    from dogs_tpu_torch.data import dataset as tdataset
+    from dogs_tpu_torch.data import synthetic
+    from dogs_tpu_torch.tools import colmap_scene
+    from dogs_tpu_torch.utils import jpeg, png
+    from dogs_tpu_torch.utils.config import load_config
+
+    dev, smi, root = h.dev, h.smi, h.root
+    t_phase = time.perf_counter()
+    jpeg.load()  # builds the codec: a build failure fails the phase
+
+    # The committed fixture, decoded here without PIL.
+    fixture = os.path.join(root, JPEG_FIXTURE)
+    names = sorted(f[:-4] for f in os.listdir(fixture) if f.endswith(".jpg"))
+    fixture_equal = {}
+    for name in names:
+        path = os.path.join(fixture, name + ".jpg")
+        if not os.path.exists(os.path.join(fixture, name + ".png")):
+            try:
+                jpeg.read_jpeg(path)
+            except jpeg.UnsupportedJpeg as e:
+                fixture_equal[name] = f"rejected ({str(e).split(': ', 1)[1]})"
+                continue
+            raise SmokeFailure(f"JPEG fixture {name}: decoded a file the decoder must reject")
+        got = jpeg.read_jpeg(path).astype(np.int16)
+        want = png.read_png(os.path.join(fixture, name + ".png")).astype(np.int16)
+        check(got.shape == want.shape and int(np.abs(got - want).max()) <= 1,
+              f"JPEG fixture {name}: not within one level of PIL's decode")
+        fixture_equal[name] = f"{float((got == want).mean()):.6f} equal"
+    check(len(names) >= 6 and any(v.startswith("rejected") for v in fixture_equal.values()),
+          f"JPEG fixture: {fixture_equal}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        scene_root = os.path.join(tmp, "data", SCENE_NAME)
+        cams = colmap_scene.make_cameras(SCENE_IMAGES, synthetic.BENCH_WIDTH, synthetic.BENCH_HEIGHT, 1000.0, dev)
+        t0 = time.perf_counter()
+        colmap_scene.write_scene(scene_root, h.params, cams, fmt="jpeg", upsample=JPEG_UPSAMPLE)
+        write_s = time.perf_counter() - t0
+        del cams
+        image_dir = os.path.join(scene_root, "images")
+        files = sorted(os.listdir(image_dir))
+        full_w, full_h = synthetic.BENCH_WIDTH * JPEG_UPSAMPLE, synthetic.BENCH_HEIGHT * JPEG_UPSAMPLE
+        check(len(files) == SCENE_IMAGES and all(f.endswith(".JPG") for f in files), f"JPEG scene: {files}")
+        mb = sum(os.path.getsize(os.path.join(image_dir, f)) for f in files) / 1e6
+
+        # One file of each subsampling on one thread, best of three.
+        decode = {}
+        for label, i in (("4:2:0", 0), ("4:2:2 + restarts", colmap_scene.JPEG_420_IMAGES)):
+            path = os.path.join(image_dir, files[i])
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                img = jpeg.read_jpeg(path)
+                times.append(time.perf_counter() - t0)
+            check(img.shape == (full_h, full_w, 3), f"JPEG scene: {files[i]} decoded to {img.shape}")
+            decode[label] = (min(times) * 1e3, full_w * full_h / 1e6 / min(times), os.path.getsize(path) / 1e6)
+        del img
+
+        # The factor-4 minify on one thread and on the reader's 8; the CLI
+        # then finds the second cache.
+        cache = os.path.join(scene_root, f"images_4{tdataset.CACHE_SUFFIX}")
+        threads, tdataset.MINIFY_THREADS = tdataset.MINIFY_THREADS, 1
+        try:
+            t0 = time.perf_counter()
+            tdataset.minify_images(scene_root, 4)
+            minify_serial_s = time.perf_counter() - t0
+        finally:
+            tdataset.MINIFY_THREADS = threads
+        serial = {f: png.read_png(os.path.join(cache, f)) for f in files}
+        shutil.rmtree(cache)
+        t0 = time.perf_counter()
+        tdataset.minify_images(scene_root, 4)
+        minify_threads_s = time.perf_counter() - t0
+        for f in files:
+            small = png.read_png(os.path.join(cache, f))
+            check(small.shape == (synthetic.BENCH_HEIGHT, synthetic.BENCH_WIDTH, 3)
+                  and np.array_equal(small, serial[f]), f"JPEG scene: {f}'s threaded minify differs")
+        del serial
+
+        def run_counted(module: str, *args: str) -> tuple[dict, str, float, float]:
+            launch = time.time()
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-c", COUNTED_CLI, module, "--config", JPEG_CONFIG,
+                                   "--scene", SCENE_NAME, *args], cwd=root, capture_output=True, text=True,
+                                  timeout=600)
+            seconds = time.perf_counter() - t0
+            if proc.returncode != 0:
+                print(proc.stdout[-4000:] + proc.stderr[-4000:], file=sys.stderr)
+            check(proc.returncode == 0, f"python -m {module} on the JPEG scene exited {proc.returncode}")
+            line = [ln for ln in proc.stdout.splitlines() if ln.startswith("[counted] ")]
+            check(len(line) == 1, f"python -m {module}: no [counted] line")
+            return json.loads(line[0][len("[counted] "):]), proc.stdout + proc.stderr, seconds, launch
+
+        common = [f"dataset.root_dir={os.path.join(tmp, 'data')}", "dataset.factor=4",
+                  f"root_dir={os.path.join(tmp, 'out')}", "trainer.enable_tensorboard=false"]
+        h.reset_counts()
+        rec, log, train_s, launch = run_counted(
+            "dogs_tpu_torch.train", *common, f"trainer.max_iterations={JPEG_STEPS}", "trainer.n_tensorboard=10",
+            f"trainer.n_validation={JPEG_VAL_EVERY}", f"trainer.n_checkpoint={JPEG_STEPS}")
+        for fn in h.counted:  # the launches of the CLI's process
+            fn.launches = rec["launches"][fn.__name__]
+        launches = h.add_counts("jpeg scene train CLI", list(h.counted))
+        check(launches["blend_backward"] == launches["sorted_segment_sum"] == JPEG_STEPS
+              and launches["blend_forward"] == JPEG_STEPS + rec["val_images"],
+              f"JPEG scene: launches {launches}, expected K2 and K3 {JPEG_STEPS} and K1 {JPEG_STEPS} + "
+              f"{rec['val_images']} val renders")
+        losses = [float(v) for v in re.findall(r"step \d+ loss ([-+0-9.eE]+)", log)]
+        final = re.search(r"final val: \{'val_psnr': ([-+0-9.eE]+)\}", log)
+        check(final is not None and len(losses) == JPEG_STEPS // 10 and losses[-1] < losses[0],
+              f"JPEG scene: the loss did not fall: {losses}")
+        val_final = float(final.group(1))
+        vals = rec["val"]
+        check(len(vals) == 2 + JPEG_STEPS // JPEG_VAL_EVERY and vals[-1] == val_final and vals[-1] > vals[0],
+              f"JPEG scene: val PSNR did not rise: {vals}")
+        first_step_s = rec["first_step_end"] - launch - rec["val0_s"]
+        step_ms = float(np.median(rec["step_ms"][1:]))
+
+        # K1-K3 and the step's gradients against plain at the trained
+        # model's inputs, outside the counts.
+        config = load_config(os.path.join(root, JPEG_CONFIG),
+                             cli_overrides=common + [f"trainer.max_iterations={JPEG_STEPS}"])
+        config.dataset.scene = SCENE_NAME
+        config.expname = f"gs_novel_view_synthesis_urban3d_{SCENE_NAME}"
+        trainer, manager, _ = factory.create_trainer(config)
+        step = trainer.load_checkpoint(manager)
+        check(step == JPEG_STEPS and trainer.cameras[0].width == synthetic.BENCH_WIDTH,
+              f"JPEG scene: the checkpoint resumed at step {step}")
+        h.path_parity(f"JPEG scene step {step + 1} inputs", trainer.state.model, trainer.cameras[0],
+                      trainer._gt_on_device(0), trainer.active_sh_degree(step + 1), rcfg=trainer.raster_cfg,
+                      tag="jpeg")
+        trainer.images.close()
+        del trainer, manager
+        torch.cuda.empty_cache()
+
+        erec, elog, eval_s, _ = run_counted("dogs_tpu_torch.eval", *common, f"eval.n_test_poses={JPEG_POSES}")
+        run = os.path.join(tmp, "out", config.expname, "eval")
+        with open(os.path.join(run, "val", "metrics.json")) as f:
+            eval_psnr = json.load(f)["mean"]["psnr"]
+        check(abs(eval_psnr - val_final) <= 1e-4,
+              f"JPEG scene: eval CLI val PSNR {eval_psnr} vs the final validate() {val_final}")
+        check(erec["launches"]["blend_forward"] >= JPEG_POSES and len(erec["gif_s"]) == 1,
+              f"JPEG scene eval CLI: launches {erec['launches']}, GIF writes {erec['gif_s']}")
+        with open(os.path.join(run, "test", "trajectory.gif"), "rb") as f:
+            gif_bytes = f.read()
+        summary = gif_summary(gif_bytes)
+        check(summary["loop"] == 0 and len(summary["delays"]) == JPEG_POSES
+              and all(d in (6, 7) for d in summary["delays"])
+              and (summary["width"], summary["height"]) == (synthetic.BENCH_WIDTH, synthetic.BENCH_HEIGHT),
+              f"JPEG scene: trajectory.gif {dict(summary, delays=summary['delays'][:3])}")
+    print(f"[jpeg] ({smi}) fixture decoded without PIL: " + ", ".join(f"{k} {v}" for k, v in fixture_equal.items()))
+    print(f"[jpeg] ({smi}) {SCENE_IMAGES} JPEGs of {full_w}x{full_h} ({mb:.1f} MB) rendered and written in "
+          f"{write_s:.2f} s; decode on one thread: "
+          + "; ".join(f"{k} {ms:.1f} ms ({mps:.1f} MP/s, {size:.2f} MB file)" for k, (ms, mps, size) in decode.items())
+          + f"; minify of {SCENE_IMAGES} images to {synthetic.BENCH_WIDTH}x{synthetic.BENCH_HEIGHT}: "
+          f"{minify_serial_s:.2f} s serial, {minify_threads_s:.2f} s on {tdataset.MINIFY_THREADS} threads")
+    print(f"[jpeg] ({smi}) {JPEG_CONFIG} through python -m dogs_tpu_torch.train: {train_s:.1f} s in all, "
+          f"{first_step_s:.2f} s from launch to the end of step 1 (less the step-0 validation), "
+          f"{JPEG_STEPS} steps at {step_ms:.2f} ms median (steps 2-{JPEG_STEPS}), peak memory "
+          f"{rec['peak_mib']:.0f} MiB, loss {losses[0]:.5f} -> {losses[-1]:.5f}, val psnr "
+          + " -> ".join(f"{v:.4f}" for v in vals)
+          + f"; python -m dogs_tpu_torch.eval {eval_s:.1f} s: val psnr {eval_psnr:.6f}, trajectory.gif of "
+          f"{len(summary['delays'])} frames ({len(gif_bytes) / 1e6:.1f} MB, delay {summary['delays'][0]} cs, loop 0) "
+          f"written in {erec['gif_s'][0]:.2f} s; phase {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> int:
@@ -2494,6 +2782,10 @@ def main() -> int:
           + ", ".join(f"{c2f_admm_ms[f]:.2f} at factor {f}" for f in (4, 2, 1))
           + f"; 4 launches of each kernel per master step; GT at factors {streamed} streamed, factor 1 from the "
           f"resident pools; final val psnr {c2f_admm_val['val_psnr']:.4f}; peak memory {c2f_admm_peak_mb:.0f} MiB")
+
+    # ---- 6k. a JPEG scene (main path 15): urban3d.yaml from 4608x3456 JPEGs --
+    jpeg_phase(SimpleNamespace(dev=dev, smi=smi, root=root, params=params, counted=counted,
+                               reset_counts=reset_counts, add_counts=add_counts, path_parity=path_parity))
 
     # ---- 6h. Scaffold-GS (main paths 10 and 11): anchors at full width ------
     scaffold_phase(SimpleNamespace(dev=dev, smi=smi, counted=counted, reset_counts=reset_counts,

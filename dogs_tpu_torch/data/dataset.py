@@ -13,9 +13,11 @@ Camera) and numpy images.
     MatrixCity's test folder,
   * the spheric test trajectory.
 
-Images decode without PIL or imageio where they are PNG files
-(utils/png.py); other formats (JPEG) need PIL, imported at the call, and
-raise naming the file where it is missing. Resizes run in torch
+Images decode without PIL or imageio: PNG files through utils/png.py and
+baseline JPEG files through utils/jpeg.py (a C decoder equal to PIL's
+libjpeg decode). Only a JPEG process that decoder does not implement
+(progressive, CMYK) and other formats need PIL, imported at the call; where
+it is missing they raise naming the file. Resizes run in torch
 (`interpolate(mode="bilinear", antialias=True)`, which follows PIL's
 BILINEAR filter; the result differs from PIL's uint8 resize by at most one
 8-bit level), and the caches are written by the port's PNG writer. The
@@ -32,6 +34,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 import os
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -39,7 +42,7 @@ import torch.nn.functional as F
 
 from dogs_tpu_torch.core.camera import Camera, make_camera
 from dogs_tpu_torch.data.colmap import ColmapModel, load_model
-from dogs_tpu_torch.utils import png
+from dogs_tpu_torch.utils import jpeg, png
 
 logger = logging.getLogger(__name__)
 
@@ -343,12 +346,17 @@ IMAGE_EXTS = (".jpg", ".jpeg", ".png", ".JPG", ".JPEG", ".PNG")
 CACHE_SUFFIX = "_torch"
 
 
+# Threads of the minify (the decoders, the resize and zlib release the
+# interpreter lock), as many as the lazy reader's.
+MINIFY_THREADS = 8
+
+
 def minify_images(root_dir: str, factor: int) -> str:
     """The images at 1 / factor: the port's cache `images_{factor}_torch/`
     where it exists, else the dataset's own `images_{factor}/` where that
-    exists, else the port's cache, generated now: every image of `images/`
-    resized to ceil(size / factor) with its channels and bit depth
-    (`_resize`, rounded), written as PNG data under its own name,
+    exists, else the port's cache, generated now on MINIFY_THREADS threads: every
+    image of `images/` resized to ceil(size / factor) with its channels and
+    bit depth (`_resize`, rounded), written as PNG data under its own name,
     subdirectories kept. Returns the directory (the source for factor 1 or
     a missing source)."""
     src = os.path.join(root_dir, "images")
@@ -360,7 +368,7 @@ def minify_images(root_dir: str, factor: int) -> str:
             return d
     tmp = dst + ".tmp"
     os.makedirs(tmp, exist_ok=True)
-    n = 0
+    jobs = []
     for dirpath, _, files in os.walk(src):
         rel = os.path.relpath(dirpath, src)
         for fname in files:
@@ -368,13 +376,18 @@ def minify_images(root_dir: str, factor: int) -> str:
                 continue
             out_dir = os.path.join(tmp, rel) if rel != "." else tmp
             os.makedirs(out_dir, exist_ok=True)
-            img = decode_image(os.path.join(dirpath, fname))
-            h, w = img.shape[:2]
-            small = _to_dtype(_resize(img, -(-w // factor), -(-h // factor)), img.dtype)
-            png.write_png(os.path.join(out_dir, fname), small)
-            n += 1
+            jobs.append((os.path.join(dirpath, fname), os.path.join(out_dir, fname)))
+
+    def minify(job: tuple[str, str]) -> None:
+        img = decode_image(job[0])
+        h, w = img.shape[:2]
+        png.write_png(job[1], _to_dtype(_resize(img, -(-w // factor), -(-h // factor)), img.dtype))
+
+    with ThreadPoolExecutor(MINIFY_THREADS) as pool:
+        for _ in pool.map(minify, jobs):  # raises the first failed image's error
+            pass
     os.replace(tmp, dst)
-    logger.info("minified %d images into %s", n, dst)
+    logger.info("minified %d images into %s", len(jobs), dst)
     return dst
 
 
@@ -448,17 +461,25 @@ def meganerf_val_names(root_dir: str, scene_name: str) -> set[str] | None:
 
 
 def decode_image(path: str) -> np.ndarray:
-    """The file's pixels as stored (uint8 or uint16, (H, W[, C])): PNG data
-    through utils/png.py, whatever the file's name; anything else through
-    PIL, which it needs."""
+    """The file's pixels as stored (uint8 or uint16, (H, W[, C])), by the
+    file's signature, whatever its name: PNG data through utils/png.py,
+    JPEG data through utils/jpeg.py (a truncated or corrupt JPEG raises
+    ValueError). A JPEG process that decoder does not implement
+    (progressive, CMYK) and any other format go to PIL, and raise naming the
+    file where PIL is missing."""
     if png.is_png(path):
         return png.read_png(path)
+    reason = f"{path}: neither PNG nor JPEG data"
+    if jpeg.is_jpeg(path):
+        try:
+            return jpeg.read_jpeg(path)
+        except jpeg.UnsupportedJpeg as e:  # its message names the file and the process
+            reason = str(e)
     try:
         from PIL import Image
     except ImportError as e:
-        raise RuntimeError(
-            f"{path}: not a PNG file; decoding other image formats (JPEG) needs PIL, which is not installed"
-        ) from e
+        raise RuntimeError(f"{reason}; PIL, which would decode it, is not installed") from e
+    logger.info("%s; decoding it with PIL", reason)
     with Image.open(path) as im:
         return np.asarray(im)
 

@@ -1,8 +1,10 @@
-"""ctypes bindings of the native COLMAP parser (`csrc/colmap_fast.c`).
+"""ctypes bindings of the native COLMAP parser (`csrc/colmap_fast.c`), and
+the build of the port's C libraries.
 
-Port of dogs_tpu/data/native.py with its own copy of the C source. The
+Port of dogs_tpu/data/native.py with its own copy of the C source. A
 library builds at first use with `gcc -O3 -shared -fPIC` into
-`dogs_tpu_torch/_build/`, under a name that carries a hash of the source;
+`dogs_tpu_torch/_build/`, under a name that carries a hash of the source
+and the flags (`build`; utils/jpeg.py builds the image codec with it);
 `load()` returns None where it cannot build or load (no gcc), and the
 readers of data/colmap.py then take their numpy path. A file that ends
 inside a record raises `ValueError` here (dogs_tpu's binding returns None
@@ -32,24 +34,31 @@ GCC_FLAGS = ("-O3", "-shared", "-fPIC")
 _c_long, _ptr = ctypes.c_long, ctypes.c_void_p
 
 
+def build(source: Path) -> ctypes.CDLL:
+    """Load the shared library of the C file `source`, compiling it first
+    when `_build/` has none for this source and these flags. Raises OSError
+    or subprocess.CalledProcessError when gcc is missing or fails."""
+    digest = hashlib.sha256(" ".join(GCC_FLAGS).encode() + source.read_bytes()).hexdigest()[:16]
+    path = BUILD_DIR / f"{source.stem}_{digest}.so"
+    if not path.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        try:
+            subprocess.run(["gcc", *GCC_FLAGS, "-o", tmp, str(source)], check=True, capture_output=True)
+            os.replace(tmp, path)
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    return ctypes.CDLL(str(path))
+
+
 @functools.lru_cache(maxsize=1)
 def load() -> ctypes.CDLL | None:
     """The parser's library, built once per source hash; None if gcc is
     missing or the build or load fails (logged)."""
-    digest = hashlib.sha256(" ".join(GCC_FLAGS).encode() + SOURCE.read_bytes()).hexdigest()[:16]
-    path = BUILD_DIR / f"colmap_fast_{digest}.so"
     try:
-        if not path.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
-            try:
-                subprocess.run(["gcc", *GCC_FLAGS, "-o", tmp, str(SOURCE)], check=True, capture_output=True)
-                os.replace(tmp, path)
-            finally:
-                if os.path.exists(tmp):
-                    os.unlink(tmp)
-        lib = ctypes.CDLL(str(path))
+        lib = build(SOURCE)
     except (OSError, subprocess.CalledProcessError) as e:
         logger.info("native COLMAP parser unavailable (%s); the numpy readers run", e)
         return None

@@ -9,9 +9,9 @@ checkpoint, scores the val split (PSNR, SSIM, LPIPS; metrics.json and PNG
 renders under <root_dir>/<expname>/eval/val), exports .splat / .ply / the
 COLMAP point cloud to <root_dir>/<expname>/export, and renders the spheric
 test trajectory (`eval.n_test_poses` frames at `eval.test_radius`) to
-eval/test. `device=cpu` runs on the CPU (the default is the card). Works
-on the synthetic scene and on COLMAP scenes (PNG images on a machine
-without PIL). A block-parallel ADMM run (`dataset.multi_blocks`, trained by
+eval/test, PNG frames and trajectory.gif. `device=cpu` runs on the CPU
+(the default is the card). Works on the synthetic scene and on COLMAP
+scenes (PNG and baseline JPEG images without PIL). A block-parallel ADMM run (`dataset.multi_blocks`, trained by
 `python -m dogs_tpu_torch.train_admm`) is scored by `evaluate_admm`: the
 fused model rebuilt from its block checkpoint on one device, the val split,
 metrics.json and the exports, as eval.py's evaluate_admm does (no test

@@ -4,7 +4,7 @@ Port of dogs_tpu/eval/evaluator.py's GaussianSplatEvaluator: PSNR, SSIM and
 LPIPS per image with the render time and peak device memory, written to
 metrics.json with the renders as PNGs (utils/png.py: no imageio needed);
 .splat / .ply / COLMAP point-cloud export (fields/io.py); the spheric test
-trajectory as PNG frames, plus a GIF where imageio is installed. Renders
+trajectory as PNG frames and a GIF (utils/gif.py: no imageio needed). Renders
 stay on the model's device as tensors, and the metrics run there too.
 """
 
@@ -26,6 +26,7 @@ from dogs_tpu_torch.eval.metrics import color_correct, lpips, psnr, ssim
 from dogs_tpu_torch.fields.io import save_colmap_ply, save_gaussian_ply, save_splat
 from dogs_tpu_torch.fields.model import GaussianModelState
 from dogs_tpu_torch.raster.tiled import RasterConfig, render_tiled
+from dogs_tpu_torch.utils import gif
 from dogs_tpu_torch.utils.png import write_png
 
 logger = logging.getLogger(__name__)
@@ -139,11 +140,11 @@ class GaussianSplatEvaluator:
         radius: float = 3.0,
         split: str = "test",
         fps: int = 15,
-    ) -> str | None:
+    ) -> str:
         """Render the spheric test trajectory (`spheric_test_poses`) with the
         reference camera's intrinsics: PNG frames <output_dir>/<split>/NNNNN.png
-        when save_images is set, and trajectory.gif when imageio is
-        installed. Returns the GIF's path, or None when there is no GIF."""
+        when save_images is set, and <output_dir>/<split>/trajectory.gif
+        (1000 / fps ms a frame, looping), whose path it returns."""
         out_dir = os.path.join(self.cfg.output_dir, split)
         os.makedirs(out_dir, exist_ok=True)
         intrinsics = [float(getattr(reference_camera, k)) for k in ("fx", "fy", "cx", "cy")]
@@ -156,16 +157,10 @@ class GaussianSplatEvaluator:
             frames.append(img)
             if self.cfg.save_images:
                 write_png(os.path.join(out_dir, f"{i:05d}.png"), img)
-        try:
-            import imageio.v2 as imageio
-        except ImportError:
-            logger.info("[%s] rendered %d frames; imageio is not installed, so no GIF was written", split,
-                        len(frames))
-            return None
-        gif = os.path.join(out_dir, "trajectory.gif")
-        imageio.mimwrite(gif, frames, duration=1000.0 / fps, loop=0)
-        logger.info("[%s] wrote %d frames + %s", split, len(frames), gif)
-        return gif
+        path = os.path.join(out_dir, "trajectory.gif")
+        gif.write_gif(path, frames, duration=1000.0 / fps, loop=0)
+        logger.info("[%s] wrote %d frames + %s", split, len(frames), path)
+        return path
 
     def export(self, out_dir: str, name: str = "model") -> None:
         """<name>.splat, the 3DGS <name>.ply and the COLMAP-style point cloud

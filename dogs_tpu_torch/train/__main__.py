@@ -8,8 +8,8 @@ Per-scene loop over `dataset.scene`: builds the trainer with
 `trainer.ckpt_path` is set, trains with the configured cadences, writes a
 final checkpoint and logs the final validation. `device=cpu` runs on the
 CPU (the default is the card). Trains the synthetic scene and COLMAP scenes
-(every shipped gaussian_splatting and scaffold_gs config; PNG images on a
-machine without PIL) on one device; a `dataset.multi_blocks` config
+(every shipped gaussian_splatting and scaffold_gs config; PNG and baseline
+JPEG images without PIL) on one device; a `dataset.multi_blocks` config
 (block-parallel ADMM, whose blocks train with `python -m
 dogs_tpu_torch.train_admm`) trains its whole scene on one device, as
 train.py does.

@@ -250,25 +250,36 @@ def test_png_decoder_rejects_interlaced_files(tmp_path):
 
 
 @pytest.mark.parametrize("kind", ["rgb", "grey", "rgba", "grey16", "jpeg"])
-def test_load_image_matches_dogs_tpu(tmp_path, kind):
+def test_load_image_matches_dogs_tpu(tmp_path, kind, monkeypatch):
+    """The port decodes with PIL hidden (its PNG reader and its JPEG
+    decoder); dogs_tpu through imageio and PIL."""
     rng = np.random.RandomState(7)
     shape = {"rgb": (9, 13, 3), "grey": (9, 13), "rgba": (9, 13, 4), "grey16": (9, 13), "jpeg": (16, 16, 3)}[kind]
     dtype = np.uint16 if kind == "grey16" else np.uint8
     arr = rng.randint(0, np.iinfo(dtype).max + 1, shape).astype(dtype)
     path = str(tmp_path / ("im.jpg" if kind == "jpeg" else "im.png"))
     imageio.imwrite(path, arr)
-    got = tdataset.load_image(path)
+    with monkeypatch.context() as m:
+        m.setitem(sys.modules, "PIL", None)
+        got = tdataset.load_image(path)
     want = jdataset.load_image(path)
     assert got.dtype == np.float32 and got.shape == want.shape
     np.testing.assert_array_equal(got, want)
 
 
-def test_jpeg_without_pil_raises_naming_the_file(tmp_path, monkeypatch):
-    path = str(tmp_path / "photo.jpg")
-    imageio.imwrite(path, np.zeros((8, 8, 3), np.uint8))
+def test_jpeg_without_pil_decodes_and_progressive_raises(tmp_path, monkeypatch):
+    """With PIL hidden a baseline JPEG loads (the port's decoder, equal to
+    PIL's decode here), and a progressive one, which that decoder does not
+    implement, raises naming the file and the process."""
+    arr = np.random.RandomState(3).randint(0, 256, (24, 40, 3)).astype(np.uint8)
+    photo, prog = str(tmp_path / "photo.jpg"), str(tmp_path / "prog.jpg")
+    Image.fromarray(arr).save(photo, quality=90)
+    Image.fromarray(arr).save(prog, quality=90, progressive=True)
+    want = np.asarray(Image.open(photo)).astype(np.float32) / 255.0
     monkeypatch.setitem(sys.modules, "PIL", None)
-    with pytest.raises(RuntimeError, match="photo.jpg"):
-        tdataset.load_image(path)
+    np.testing.assert_array_equal(tdataset.load_image(photo), want)
+    with pytest.raises(RuntimeError, match="prog.jpg.*progressive.*PIL"):
+        tdataset.load_image(prog)
 
 
 # ---- resizes and caches ----------------------------------------------------------
@@ -369,6 +380,9 @@ SCENES = {
     "matrix_city": (dict(image_names=["train/a.png", "train/b.png", "test/c.png", "train/d.png"], n_images=4),
                     dict(dataset_name="matrix_city", val_interval=2)),
     "meganerf": (dict(n_images=5), dict(scene_name="rubble")),
+    # JPEG images read by both packages at factor 1 (at factor 2 dogs_tpu's
+    # minify re-encodes them at PIL's quality 75, the port writes PNG data)
+    "jpeg": (dict(image_names=[f"im_{i:03d}.jpg" for i in range(6)]), dict()),
 }
 
 
@@ -398,6 +412,9 @@ def test_load_scene_equals_dogs_tpu(tmp_path, case):
                 assert np.abs(rt.load() - rj.load()).max() <= LEVEL + 1e-7
     if case == "meganerf":
         assert [os.path.basename(r.image_path) for r in t.val_cameras] == ["im_001.png", "im_003.png"]
+    if case == "jpeg":  # the port's decoder against PIL's
+        for rt, rj in zip(t.train_cameras + t.val_cameras, j.train_cameras + j.val_cameras):
+            assert np.abs(rt.load() - rj.load()).max() <= LEVEL + 1e-7
 
 
 # ---- the lazy reader -------------------------------------------------------------

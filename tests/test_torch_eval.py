@@ -212,19 +212,36 @@ def test_export_is_byte_equal_to_jax_and_reads_back(tmp_path):
         np.testing.assert_array_equal(splat[k], j_splat[k], err_msg=k)
 
 
-def test_trajectory_without_imageio_writes_frames_and_no_gif(tmp_path, monkeypatch, caplog):
-    monkeypatch.setitem(sys.modules, "imageio", None)
-    monkeypatch.setitem(sys.modules, "imageio.v2", None)
+def test_trajectory_without_imageio_writes_frames_and_the_gif(tmp_path, monkeypatch):
+    """With imageio and PIL hidden the trajectory's PNG frames and its GIF
+    are written; imageio reads the GIF back: one frame per pose, each within
+    a median-cut palette of its PNG frame, 1000 / 15 ms a frame (Pillow's
+    whole centiseconds), looping."""
+    for name in ("imageio", "imageio.v2", "PIL"):
+        monkeypatch.setitem(sys.modules, name, None)
     state = load_jax_checkpoint_from(tmp_path, jax_model())
     ev = GaussianSplatEvaluator(state, RasterConfig(max_tiles_per_gaussian=36),
                                 EvalConfig(output_dir=str(tmp_path / "eval"), active_sh_degree=2))
     cam = synthetic.ring_cameras(1, 4.0, W, H, W * 0.9, device="cpu")[0]
-    caplog.set_level("INFO")
-    assert ev.eval_test_trajectory(cam, n_poses=3, radius=4.0) is None
-    frames = sorted((tmp_path / "eval" / "test").iterdir())
+    gif_path = ev.eval_test_trajectory(cam, n_poses=3, radius=4.0)
+    monkeypatch.undo()
+    import imageio.v2 as imageio
+    from PIL import Image
+
+    assert gif_path == str(tmp_path / "eval" / "test" / "trajectory.gif")
+    frames = sorted(f for f in (tmp_path / "eval" / "test").iterdir() if f.suffix == ".png")
     assert [f.name for f in frames] == ["00000.png", "00001.png", "00002.png"]
     assert all(png.png_size(str(f)) == (W, H) for f in frames)
-    assert "no GIF" in caplog.text
+    back = imageio.mimread(gif_path)
+    assert len(back) == 3
+    for got, frame in zip(back, frames):
+        want = png.read_png(str(frame)).astype(np.float64)
+        assert got.shape == (H, W, 3)
+        assert 10 * np.log10(255.0**2 / max(np.mean((got - want) ** 2), 1e-12)) > 30.0
+    with Image.open(gif_path) as im:
+        for i in range(3):
+            im.seek(i)
+            assert (im.info["duration"], im.info["loop"]) == (60, 0)
 
 
 def load_jax_checkpoint_from(tmp_path, model):

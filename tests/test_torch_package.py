@@ -24,9 +24,10 @@ def run_python(code: str, cwd=REPO):
 def test_every_module_imports_without_jax():
     """No JAX, no PyYAML, no PIL, no imageio and nothing of dogs_tpu, by
     module name and by file: a module loaded from a dogs_tpu/ file under
-    another name is caught too. (imageio is imported only to write the
-    trajectory's GIF, inside the call; PIL only to decode a JPEG, inside
-    the call.)"""
+    another name is caught too. No source file of the port imports imageio;
+    PIL is imported only by data/dataset.py, inside the call, for a JPEG
+    process the port's decoder rejects (progressive, CMYK) or a file that
+    is neither PNG nor JPEG."""
     proc = run_python(
         "import importlib, pkgutil, sys\n"
         "from pathlib import Path\n"
@@ -51,6 +52,13 @@ def test_every_module_imports_without_jax():
     )
     assert proc.returncode == 0, proc.stderr
     assert "modules" in proc.stdout
+    imports = {}
+    for path in sorted((REPO / "dogs_tpu_torch").rglob("*.py")):
+        for line in path.read_text().splitlines():
+            words = line.split()
+            if words[:1] in (["import"], ["from"]) and words[1].split(".")[0] in ("PIL", "imageio"):
+                imports.setdefault(str(path.relative_to(REPO)), []).append(line.strip())
+    assert imports == {"dogs_tpu_torch/data/dataset.py": ["from PIL import Image"]}, imports
 
 
 def test_every_device_parameter_defaults_to_the_card():
