@@ -15,7 +15,7 @@ LightGaussian importance prune (one VJP through all three kernels per
 camera), export, the train and eval CLIs, real-scene training (a COLMAP
 scene through the data slice and the per-image loss terms), block-parallel
 ADMM, coarse-to-fine training with the profiler, a JPEG scene read by the
-port's own codec, Scaffold-GS (anchors decoded per view by MLPs, rendered
+port's own codec, baseline and progressive, and 16 MP PNGs, Scaffold-GS (anchors decoded per view by MLPs, rendered
 through the same three kernels) and the bench's modes, in phases:
 
   1. device   require CUDA; print the card's name and power limit
@@ -158,7 +158,7 @@ through the same three kernels) and the bench's modes, in phases:
               quality 90 with a restart marker every MCU row); the committed
               fixture (tests/data/torch_jpeg) decoded by the port's JPEG
               decoder within one level of PIL's decodes, its progressive file
-              rejected; one file of each subsampling decoded on one thread (ms,
+              decoded; one file of each subsampling decoded on one thread (ms,
               MP/s); the factor-4 minify serial and on 8 threads (equal
               caches); urban3d.yaml at factor 4 (1152x864) through python -m
               dogs_tpu_torch.train for 30 steps, run by a wrapper that counts
@@ -170,6 +170,24 @@ through the same three kernels) and the bench's modes, in phases:
               inputs; python -m dogs_tpu_torch.eval: val PSNR within 1e-4 dB
               of the final validate(), trajectory.gif of 30 frames parsed here
               (GIF89a, NETSCAPE loop 0, delay 6-7 cs), its write timed
+  6l. progressive JPEG and PNG  the fixture's progressive.jpg bit for bit
+              its progressive.png; 6k's 17 rendered views written by
+              tools/colmap_scene.py as progressive JPEGs (6k's settings,
+              libjpeg's simple progression, 8 threads), each decoding to the
+              pixels of 6k's baseline file of the same view; one file of each
+              subsampling decoded on one thread (ms, MP/s, beside 6k's); the
+              factor-4 minify serial and on 8 threads, the caches equal to
+              each other and to 6k's; urban3d.yaml through python -m
+              dogs_tpu_torch.train for 10 steps in 6k's counting wrapper (K2
+              and K3 once a step, K1 once a step and once a val render; the
+              loss falls; time to step 1 beside 6k's), K1-K3 and the step's
+              gradients against plain at the trained checkpoint's inputs,
+              python -m dogs_tpu_torch.eval without the trajectory (val PSNR
+              within 1e-4 dB of the final validate()); then view 0 as a
+              4608x3456 RGB PNG whose rows cycle through the five filter
+              types (filtered in numpy here) and as an Adam7 PNG: each
+              decodes to the view; one decode of each on one thread (ms,
+              MP/s); 8 copies decoded serially and on 8 threads (speedup)
   6h. Scaffold-GS  bench.py --scaffold's run: anchors voxelized at 0.2
               from the 500k bench means (K = 10 offsets), GT from bench scene
               seed 7 at SH 0, the 8 bench cameras, max_tiles 12, 300
@@ -229,10 +247,12 @@ import logging
 import os
 import re
 import shutil
+import struct
 import subprocess
 import sys
 import tempfile
 import time
+import zlib
 from types import SimpleNamespace
 
 import numpy as np
@@ -1037,7 +1057,52 @@ def gif_summary(data: bytes) -> dict:
     return out
 
 
-def jpeg_phase(h) -> None:
+def read_bytes(path: str) -> bytes:
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def run_counted(root: str, module: str, *args: str) -> tuple[dict, str, float, float]:
+    """`python -m module --config JPEG_CONFIG --scene SCENE_NAME args` run by
+    COUNTED_CLI in a child process: its [counted] record, its output, its
+    seconds and the wall-clock time of its launch."""
+    launch = time.time()
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", COUNTED_CLI, module, "--config", JPEG_CONFIG, "--scene", SCENE_NAME,
+                           *args], cwd=root, capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        print(proc.stdout[-4000:] + proc.stderr[-4000:], file=sys.stderr)
+    check(proc.returncode == 0, f"python -m {module} on the JPEG scene exited {proc.returncode}")
+    line = [ln for ln in proc.stdout.splitlines() if ln.startswith("[counted] ")]
+    check(len(line) == 1, f"python -m {module}: no [counted] line")
+    return json.loads(line[0][len("[counted] "):]), proc.stdout + proc.stderr, seconds, launch
+
+
+def checkpoint_parity(h, common: list[str], steps: int, label: str, tag: str) -> str:
+    """K1-K3 and the step's gradients against plain (main's path_parity) at
+    the inputs of step steps + 1 of the train CLI's checkpoint of
+    JPEG_CONFIG, outside the counts. Returns the run's expname."""
+    from dogs_tpu_torch import factory
+    from dogs_tpu_torch.data import synthetic
+    from dogs_tpu_torch.utils.config import load_config
+
+    config = load_config(os.path.join(h.root, JPEG_CONFIG), cli_overrides=common + [f"trainer.max_iterations={steps}"])
+    config.dataset.scene = SCENE_NAME
+    config.expname = f"gs_novel_view_synthesis_urban3d_{SCENE_NAME}"
+    trainer, manager, _ = factory.create_trainer(config)
+    step = trainer.load_checkpoint(manager)
+    check(step == steps and trainer.cameras[0].width == synthetic.BENCH_WIDTH,
+          f"{label}: the checkpoint resumed at step {step}")
+    h.path_parity(f"{label} step {step + 1} inputs", trainer.state.model, trainer.cameras[0],
+                  trainer._gt_on_device(0), trainer.active_sh_degree(step + 1), rcfg=trainer.raster_cfg, tag=tag)
+    trainer.images.close()
+    del trainer, manager
+    torch.cuda.empty_cache()
+    return config.expname
+
+
+def jpeg_phase(h) -> dict:
     """Phase 6k: the data layer's JPEG codec on a real-scene config. 6f's
     scene rendered again and written by tools/colmap_scene.py as 17 JPEGs
     of 4608x3456 (images 0-8 at 4:2:0 and quality 95, 9-16 at 4:2:2 and
@@ -1052,13 +1117,13 @@ def jpeg_phase(h) -> None:
     dogs_tpu_torch.eval` (val PSNR within 1e-4 dB of the final validate(),
     a JPEG_POSES-frame trajectory.gif parsed here: header, loop 0, frame
     count, delay 6-7 cs). `h` carries main's helpers: dev, smi, root,
-    params, counted, reset_counts, add_counts, path_parity."""
-    from dogs_tpu_torch import factory
+    params, counted, reset_counts, add_counts, path_parity. Returns what 6l
+    reuses: the rendered views, the files and the sparse model as bytes,
+    the serial minify's cache and this phase's numbers."""
     from dogs_tpu_torch.data import dataset as tdataset
     from dogs_tpu_torch.data import synthetic
     from dogs_tpu_torch.tools import colmap_scene
     from dogs_tpu_torch.utils import jpeg, png
-    from dogs_tpu_torch.utils.config import load_config
 
     dev, smi, root = h.dev, h.smi, h.root
     t_phase = time.perf_counter()
@@ -1069,27 +1134,28 @@ def jpeg_phase(h) -> None:
     names = sorted(f[:-4] for f in os.listdir(fixture) if f.endswith(".jpg"))
     fixture_equal = {}
     for name in names:
-        path = os.path.join(fixture, name + ".jpg")
-        if not os.path.exists(os.path.join(fixture, name + ".png")):
-            try:
-                jpeg.read_jpeg(path)
-            except jpeg.UnsupportedJpeg as e:
-                fixture_equal[name] = f"rejected ({str(e).split(': ', 1)[1]})"
-                continue
-            raise SmokeFailure(f"JPEG fixture {name}: decoded a file the decoder must reject")
-        got = jpeg.read_jpeg(path).astype(np.int16)
+        got = jpeg.read_jpeg(os.path.join(fixture, name + ".jpg")).astype(np.int16)
         want = png.read_png(os.path.join(fixture, name + ".png")).astype(np.int16)
         check(got.shape == want.shape and int(np.abs(got - want).max()) <= 1,
               f"JPEG fixture {name}: not within one level of PIL's decode")
         fixture_equal[name] = f"{float((got == want).mean()):.6f} equal"
-    check(len(names) >= 6 and any(v.startswith("rejected") for v in fixture_equal.values()),
-          f"JPEG fixture: {fixture_equal}")
+    check(len(names) >= 6 and "progressive" in names, f"JPEG fixture: {fixture_equal}")
 
     with tempfile.TemporaryDirectory() as tmp:
         scene_root = os.path.join(tmp, "data", SCENE_NAME)
         cams = colmap_scene.make_cameras(SCENE_IMAGES, synthetic.BENCH_WIDTH, synthetic.BENCH_HEIGHT, 1000.0, dev)
+        views, write_image = {}, colmap_scene.write_image  # the rendered views, kept for 6l
+
+        def keeping_write(path, img, i, fmt):
+            views[i] = img
+            write_image(path, img, i, fmt)
+
+        colmap_scene.write_image = keeping_write
         t0 = time.perf_counter()
-        colmap_scene.write_scene(scene_root, h.params, cams, fmt="jpeg", upsample=JPEG_UPSAMPLE)
+        try:
+            colmap_scene.write_scene(scene_root, h.params, cams, fmt="jpeg", upsample=JPEG_UPSAMPLE)
+        finally:
+            colmap_scene.write_image = write_image
         write_s = time.perf_counter() - t0
         del cams
         image_dir = os.path.join(scene_root, "images")
@@ -1130,27 +1196,12 @@ def jpeg_phase(h) -> None:
             small = png.read_png(os.path.join(cache, f))
             check(small.shape == (synthetic.BENCH_HEIGHT, synthetic.BENCH_WIDTH, 3)
                   and np.array_equal(small, serial[f]), f"JPEG scene: {f}'s threaded minify differs")
-        del serial
-
-        def run_counted(module: str, *args: str) -> tuple[dict, str, float, float]:
-            launch = time.time()
-            t0 = time.perf_counter()
-            proc = subprocess.run([sys.executable, "-c", COUNTED_CLI, module, "--config", JPEG_CONFIG,
-                                   "--scene", SCENE_NAME, *args], cwd=root, capture_output=True, text=True,
-                                  timeout=600)
-            seconds = time.perf_counter() - t0
-            if proc.returncode != 0:
-                print(proc.stdout[-4000:] + proc.stderr[-4000:], file=sys.stderr)
-            check(proc.returncode == 0, f"python -m {module} on the JPEG scene exited {proc.returncode}")
-            line = [ln for ln in proc.stdout.splitlines() if ln.startswith("[counted] ")]
-            check(len(line) == 1, f"python -m {module}: no [counted] line")
-            return json.loads(line[0][len("[counted] "):]), proc.stdout + proc.stderr, seconds, launch
 
         common = [f"dataset.root_dir={os.path.join(tmp, 'data')}", "dataset.factor=4",
                   f"root_dir={os.path.join(tmp, 'out')}", "trainer.enable_tensorboard=false"]
         h.reset_counts()
         rec, log, train_s, launch = run_counted(
-            "dogs_tpu_torch.train", *common, f"trainer.max_iterations={JPEG_STEPS}", "trainer.n_tensorboard=10",
+            root, "dogs_tpu_torch.train", *common, f"trainer.max_iterations={JPEG_STEPS}", "trainer.n_tensorboard=10",
             f"trainer.n_validation={JPEG_VAL_EVERY}", f"trainer.n_checkpoint={JPEG_STEPS}")
         for fn in h.counted:  # the launches of the CLI's process
             fn.launches = rec["launches"][fn.__name__]
@@ -1172,23 +1223,10 @@ def jpeg_phase(h) -> None:
 
         # K1-K3 and the step's gradients against plain at the trained
         # model's inputs, outside the counts.
-        config = load_config(os.path.join(root, JPEG_CONFIG),
-                             cli_overrides=common + [f"trainer.max_iterations={JPEG_STEPS}"])
-        config.dataset.scene = SCENE_NAME
-        config.expname = f"gs_novel_view_synthesis_urban3d_{SCENE_NAME}"
-        trainer, manager, _ = factory.create_trainer(config)
-        step = trainer.load_checkpoint(manager)
-        check(step == JPEG_STEPS and trainer.cameras[0].width == synthetic.BENCH_WIDTH,
-              f"JPEG scene: the checkpoint resumed at step {step}")
-        h.path_parity(f"JPEG scene step {step + 1} inputs", trainer.state.model, trainer.cameras[0],
-                      trainer._gt_on_device(0), trainer.active_sh_degree(step + 1), rcfg=trainer.raster_cfg,
-                      tag="jpeg")
-        trainer.images.close()
-        del trainer, manager
-        torch.cuda.empty_cache()
+        expname = checkpoint_parity(h, common, JPEG_STEPS, "JPEG scene", "jpeg")
 
-        erec, elog, eval_s, _ = run_counted("dogs_tpu_torch.eval", *common, f"eval.n_test_poses={JPEG_POSES}")
-        run = os.path.join(tmp, "out", config.expname, "eval")
+        erec, elog, eval_s, _ = run_counted(root, "dogs_tpu_torch.eval", *common, f"eval.n_test_poses={JPEG_POSES}")
+        run = os.path.join(tmp, "out", expname, "eval")
         with open(os.path.join(run, "val", "metrics.json")) as f:
             eval_psnr = json.load(f)["mean"]["psnr"]
         check(abs(eval_psnr - val_final) <= 1e-4,
@@ -1202,6 +1240,11 @@ def jpeg_phase(h) -> None:
               and all(d in (6, 7) for d in summary["delays"])
               and (summary["width"], summary["height"]) == (synthetic.BENCH_WIDTH, synthetic.BENCH_HEIGHT),
               f"JPEG scene: trajectory.gif {dict(summary, delays=summary['delays'][:3])}")
+        model_dir = os.path.join(scene_root, "sparse", "0")
+        base = {"views": views, "cache": serial, "decode": decode, "minify": (minify_serial_s, minify_threads_s),
+                "first_step_s": first_step_s, "step_ms": step_ms, "mb": mb,
+                "files": {f: read_bytes(os.path.join(image_dir, f)) for f in files},
+                "sparse": {f: read_bytes(os.path.join(model_dir, f)) for f in os.listdir(model_dir)}}
     print(f"[jpeg] ({smi}) fixture decoded without PIL: " + ", ".join(f"{k} {v}" for k, v in fixture_equal.items()))
     print(f"[jpeg] ({smi}) {SCENE_IMAGES} JPEGs of {full_w}x{full_h} ({mb:.1f} MB) rendered and written in "
           f"{write_s:.2f} s; decode on one thread: "
@@ -1216,6 +1259,222 @@ def jpeg_phase(h) -> None:
           + f"; python -m dogs_tpu_torch.eval {eval_s:.1f} s: val psnr {eval_psnr:.6f}, trajectory.gif of "
           f"{len(summary['delays'])} frames ({len(gif_bytes) / 1e6:.1f} MB, delay {summary['delays'][0]} cs, loop 0) "
           f"written in {erec['gif_s'][0]:.2f} s; phase {time.perf_counter() - t_phase:.1f} s")
+    return base
+
+
+# Phase 6l: 6k's views written again as progressive JPEGs, trained from,
+# and a 16 MP PNG of filtered rows and its Adam7 twin decoded.
+PROG_STEPS, PROG_LOG_EVERY = 10, 5
+PNG_FILTERS = (0, 1, 2, 3, 4)  # row y of the PNG files uses PNG_FILTERS[y % 5]
+PNG_THREADS = 8
+
+
+def png_filtered(raw: np.ndarray, bpp: int) -> bytes:
+    """PNG's filtered rows of the (h, stride) bytes `raw` (row y with filter
+    type PNG_FILTERS[y % 5], bpp bytes to the byte on the left), every row
+    at once in numpy: the plain encoder the decoder is held against."""
+    cur = raw.astype(np.int16)
+    up, left, upleft = np.zeros_like(cur), np.zeros_like(cur), np.zeros_like(cur)
+    up[1:] = cur[:-1]
+    left[:, bpp:] = cur[:, :-bpp]
+    upleft[1:, bpp:] = cur[:-1, :-bpp]
+    types = np.asarray(PNG_FILTERS)[np.arange(len(cur)) % len(PNG_FILTERS)]
+    out = np.empty((len(cur), 1 + cur.shape[1]), np.uint8)
+    out[:, 0] = types
+    for f in PNG_FILTERS:
+        y = types == f
+        c, a, b, d = cur[y], left[y], up[y], upleft[y]
+        if f == 4:
+            p = a + b - d
+            pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - d)
+            pred = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, d))
+        else:
+            pred = (0, a, b, (a + b) >> 1)[f]
+        out[y, 1:] = (c - pred) & 0xFF
+    return out.tobytes()
+
+
+def png_rgb(img: np.ndarray, interlaced: bool) -> bytes:
+    """An 8-bit RGB PNG of img, its rows filtered by png_filtered, plain or
+    by Adam7's seven passes (each filtered on its own), zlib level 1."""
+    from dogs_tpu_torch.utils import png
+
+    if interlaced:
+        idat = b"".join(png_filtered(img[y0::dy, x0::dx].reshape(-1, img[y0::dy, x0::dx].shape[1] * 3), 3)
+                        for x0, y0, dx, dy in png.ADAM7 if img[y0::dy, x0::dx].size)
+    else:
+        idat = png_filtered(img.reshape(img.shape[0], -1), 3)
+
+    def chunk(kind, data):
+        return struct.pack(">I", len(data)) + kind + data + struct.pack(">I", zlib.crc32(kind + data))
+
+    header = struct.pack(">IIBBBBB", img.shape[1], img.shape[0], 8, 2, 0, 0, int(interlaced))
+    return png.SIGNATURE + chunk(b"IHDR", header) + chunk(b"IDAT", zlib.compress(idat, 1)) + chunk(b"IEND", b"")
+
+
+def timed(fn, n: int = 2) -> tuple[float, object]:
+    """The least of n timings of fn() in seconds, and its last result."""
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        out = fn()
+        times.append(time.perf_counter() - t0)
+    return min(times), out
+
+
+def progressive_phase(h, base: dict) -> None:
+    """Phase 6l: the formats dogs_tpu reads through imageio that the card
+    machine has no library for. The committed progressive.jpg against its
+    progressive.png bit for bit; 6k's 17 rendered views written by
+    tools/colmap_scene.py as progressive JPEGs with 6k's settings (on 8
+    threads), each decoding to the pixels of 6k's baseline file of the same
+    view; one file of each subsampling decoded on one thread (ms, MP/s,
+    beside 6k's); the factor-4 minify serial and on 8 threads, the caches
+    equal to each other and to 6k's; urban3d.yaml trained for PROG_STEPS
+    steps by `python -m dogs_tpu_torch.train` from that cache (K2, K3 once a
+    step and K1 once a step and once a val frame, counted in its process;
+    the loss falls; time to step 1 beside 6k's), K1-K3 and the step's
+    gradients against plain at the trained model's inputs, `python -m
+    dogs_tpu_torch.eval` without the trajectory (val PSNR within 1e-4 dB of
+    the final validate()). Then view 0 as an RGB PNG whose rows cycle
+    through the five filter types, and as an Adam7 PNG: each decodes to the
+    view; one decode of each on one thread (ms, MP/s); PNG_THREADS copies of
+    the plain file decoded serially and on PNG_THREADS threads (the
+    speedup shows the C filters and zlib release the lock). `h` as for
+    jpeg_phase; `base` is what jpeg_phase returned."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from dogs_tpu_torch.data import dataset as tdataset
+    from dogs_tpu_torch.data import synthetic
+    from dogs_tpu_torch.tools import colmap_scene
+    from dogs_tpu_torch.utils import jpeg, png
+
+    smi, root, views = h.smi, h.root, base["views"]
+    t_phase = time.perf_counter()
+    fixture = os.path.join(root, JPEG_FIXTURE)
+    check(np.array_equal(jpeg.read_jpeg(os.path.join(fixture, "progressive.jpg")),
+                         png.read_png(os.path.join(fixture, "progressive.png"))),
+          "JPEG fixture progressive: not bit for bit PIL's decode")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        scene_root = os.path.join(tmp, "data", SCENE_NAME)
+        image_dir, model_dir = os.path.join(scene_root, "images"), os.path.join(scene_root, "sparse", "0")
+        os.makedirs(image_dir)
+        os.makedirs(model_dir)
+        for name, data in base["sparse"].items():
+            with open(os.path.join(model_dir, name), "wb") as f:
+                f.write(data)
+        files = sorted(base["files"])
+        paths = [os.path.join(image_dir, f) for f in files]
+        with ThreadPoolExecutor(8) as pool:
+            t0 = time.perf_counter()
+            list(pool.map(lambda i: colmap_scene.write_image(paths[i], views[i], i, "jpeg-progressive"),
+                          range(len(files))))
+            write_s = time.perf_counter() - t0
+            same = list(pool.map(lambda i: np.array_equal(jpeg.read_jpeg(paths[i]),
+                                                          jpeg.decode_jpeg(base["files"][files[i]], files[i])),
+                                 range(len(files))))
+        check(all(read_bytes(p)[2:].find(b"\xff\xc2") >= 0 for p in paths), "progressive scene: a file without SOF2")
+        check(all(same), f"progressive scene: files {[f for f, ok in zip(files, same) if not ok]} do not decode to "
+              "their baseline twins' pixels")
+        mb = sum(os.path.getsize(p) for p in paths) / 1e6
+        full_h, full_w = views[0].shape[:2]
+        decode = {}
+        for label, i in (("4:2:0", 0), ("4:2:2 + restarts", colmap_scene.JPEG_420_IMAGES)):
+            sec, _ = timed(lambda: jpeg.read_jpeg(paths[i]))
+            decode[label] = (sec * 1e3, full_w * full_h / 1e6 / sec, os.path.getsize(paths[i]) / 1e6)
+
+        cache = os.path.join(scene_root, f"images_4{tdataset.CACHE_SUFFIX}")
+        threads, tdataset.MINIFY_THREADS = tdataset.MINIFY_THREADS, 1
+        try:
+            t0 = time.perf_counter()
+            tdataset.minify_images(scene_root, 4)
+            minify_serial_s = time.perf_counter() - t0
+        finally:
+            tdataset.MINIFY_THREADS = threads
+        serial = {f: png.read_png(os.path.join(cache, f)) for f in files}
+        shutil.rmtree(cache)
+        t0 = time.perf_counter()
+        tdataset.minify_images(scene_root, 4)
+        minify_threads_s = time.perf_counter() - t0
+        check(all(np.array_equal(png.read_png(os.path.join(cache, f)), serial[f])
+                  and np.array_equal(serial[f], base["cache"][f]) for f in files),
+              "progressive scene: the minify caches differ from each other or from 6k's")
+
+        common = [f"dataset.root_dir={os.path.join(tmp, 'data')}", "dataset.factor=4",
+                  f"root_dir={os.path.join(tmp, 'out')}", "trainer.enable_tensorboard=false"]
+        h.reset_counts()
+        rec, log, train_s, launch = run_counted(
+            root, "dogs_tpu_torch.train", *common, f"trainer.max_iterations={PROG_STEPS}",
+            f"trainer.n_tensorboard={PROG_LOG_EVERY}", f"trainer.n_validation={PROG_STEPS}",
+            f"trainer.n_checkpoint={PROG_STEPS}")
+        for fn in h.counted:  # the launches of the CLI's process
+            fn.launches = rec["launches"][fn.__name__]
+        launches = h.add_counts("progressive scene train CLI", list(h.counted))
+        check(launches["blend_backward"] == launches["sorted_segment_sum"] == PROG_STEPS
+              and launches["blend_forward"] == PROG_STEPS + rec["val_images"],
+              f"progressive scene: launches {launches}, expected K2 and K3 {PROG_STEPS} and K1 {PROG_STEPS} + "
+              f"{rec['val_images']} val renders")
+        losses = [float(v) for v in re.findall(r"step \d+ loss ([-+0-9.eE]+)", log)]
+        final = re.search(r"final val: \{'val_psnr': ([-+0-9.eE]+)\}", log)
+        check(final is not None and len(losses) == PROG_STEPS // PROG_LOG_EVERY and losses[-1] < losses[0],
+              f"progressive scene: the loss did not fall: {losses}")
+        val_final, vals = float(final.group(1)), rec["val"]
+        check(len(vals) == 3 and vals[-1] == val_final and np.isfinite(vals).all(),
+              f"progressive scene: val PSNR {vals}")
+        first_step_s = rec["first_step_end"] - launch - rec["val0_s"]
+        step_ms = float(np.median(rec["step_ms"][1:]))
+        expname = checkpoint_parity(h, common, PROG_STEPS, "progressive scene", "progressive")
+
+        erec, _, eval_s, _ = run_counted(root, "dogs_tpu_torch.eval", *common, "eval.test_trajectory=false")
+        with open(os.path.join(tmp, "out", expname, "eval", "val", "metrics.json")) as f:
+            eval_psnr = json.load(f)["mean"]["psnr"]
+        check(abs(eval_psnr - val_final) <= 1e-4 and not erec["gif_s"],
+              f"progressive scene: eval CLI val PSNR {eval_psnr} vs the final validate() {val_final}, GIF writes "
+              f"{erec['gif_s']}")
+
+        # PNG: view 0 with every filter type, plain and Adam7. The serial
+        # decodes of the PNG_THREADS copies time one decode on one thread.
+        img = views[0]
+        with ThreadPoolExecutor(2) as pool:
+            plain, adam7 = pool.map(lambda interlaced: png_rgb(img, interlaced), (False, True))
+        png_paths = [os.path.join(tmp, f"view0_{k}.png") for k in range(PNG_THREADS)]
+        for p in png_paths:
+            with open(p, "wb") as f:
+                f.write(plain)
+        adam7_path = os.path.join(tmp, "view0_adam7.png")
+        with open(adam7_path, "wb") as f:
+            f.write(adam7)
+        adam7_s, out = timed(lambda: png.read_png(adam7_path))
+        check(np.array_equal(out, img), "PNG: the Adam7 decode differs from its array")
+        serial = [timed(lambda: png.read_png(p), 1) for p in png_paths]
+        png_serial_s, png_s = sum(t for t, _ in serial), min(t for t, _ in serial)
+        with ThreadPoolExecutor(PNG_THREADS) as pool:
+            t0 = time.perf_counter()
+            out = list(pool.map(png.read_png, png_paths))
+            png_threads_s = time.perf_counter() - t0
+        check(all(np.array_equal(o, img) for o in out + [o for _, o in serial]), "PNG: a decode differs from its array")
+    mp = full_w * full_h / 1e6
+    bd, (bms, bmt) = base["decode"], base["minify"]
+    print(f"[progressive] ({smi}) fixture progressive.jpg bit for bit its PNG; {len(files)} progressive JPEGs of "
+          f"{full_w}x{full_h} ({mb:.1f} MB; 6k's baseline files {base['mb']:.1f} MB) encoded and written in "
+          f"{write_s:.2f} s on 8 threads, each decoding to its baseline twin's pixels; decode on one thread: "
+          + "; ".join(f"{k} {ms:.1f} ms ({mps:.1f} MP/s, {size:.2f} MB file; baseline {bd[k][0]:.1f} ms, "
+                      f"{bd[k][1]:.1f} MP/s)" for k, (ms, mps, size) in decode.items())
+          + f"; minify to {synthetic.BENCH_WIDTH}x{synthetic.BENCH_HEIGHT}: {minify_serial_s:.2f} s serial, "
+          f"{minify_threads_s:.2f} s on {tdataset.MINIFY_THREADS} threads (baseline {bms:.2f} / {bmt:.2f} s), caches "
+          "equal to 6k's")
+    print(f"[progressive] ({smi}) {JPEG_CONFIG} through python -m dogs_tpu_torch.train: {train_s:.1f} s in all, "
+          f"{first_step_s:.2f} s from launch to the end of step 1 (baseline 6k: {base['first_step_s']:.2f} s), "
+          f"{PROG_STEPS} steps at {step_ms:.2f} ms median (6k: {base['step_ms']:.2f}), loss "
+          + " -> ".join(f"{v:.5f}" for v in losses) + ", val psnr " + " -> ".join(f"{v:.4f}" for v in vals)
+          + f"; launches {launches}; python -m dogs_tpu_torch.eval (no trajectory) {eval_s:.1f} s: val psnr "
+          f"{eval_psnr:.6f}")
+    print(f"[png] ({smi}) {full_w}x{full_h} RGB, rows cycling through filter types 0-4: {len(plain) / 1e6:.1f} MB, "
+          f"decoded in {png_s * 1e3:.1f} ms ({mp / png_s:.1f} MP/s) on one thread; Adam7 {len(adam7) / 1e6:.1f} MB, "
+          f"{adam7_s * 1e3:.1f} ms ({mp / adam7_s:.1f} MP/s); {PNG_THREADS} files {png_serial_s:.2f} s serial, "
+          f"{png_threads_s:.2f} s on {PNG_THREADS} threads ({png_serial_s / png_threads_s:.2f}x); phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> int:
@@ -2784,8 +3043,13 @@ def main() -> int:
           f"resident pools; final val psnr {c2f_admm_val['val_psnr']:.4f}; peak memory {c2f_admm_peak_mb:.0f} MiB")
 
     # ---- 6k. a JPEG scene (main path 15): urban3d.yaml from 4608x3456 JPEGs --
-    jpeg_phase(SimpleNamespace(dev=dev, smi=smi, root=root, params=params, counted=counted,
-                               reset_counts=reset_counts, add_counts=add_counts, path_parity=path_parity))
+    phase_helpers = SimpleNamespace(dev=dev, smi=smi, root=root, params=params, counted=counted,
+                                    reset_counts=reset_counts, add_counts=add_counts, path_parity=path_parity)
+    base = jpeg_phase(phase_helpers)
+
+    # ---- 6l. progressive JPEG and PNG (main path 16): the same views -------
+    progressive_phase(phase_helpers, base)
+    del base
 
     # ---- 6h. Scaffold-GS (main paths 10 and 11): anchors at full width ------
     scaffold_phase(SimpleNamespace(dev=dev, smi=smi, counted=counted, reset_counts=reset_counts,

@@ -1,14 +1,20 @@
-/* Baseline JPEG decoding and encoding, and GIF LZW coding, for the port's
- * data layer (dogs_tpu_torch/utils/jpeg.py, dogs_tpu_torch/utils/gif.py).
+/* JPEG decoding and encoding, baseline and progressive, and GIF LZW coding,
+ * for the port's data layer (dogs_tpu_torch/utils/jpeg.py,
+ * dogs_tpu_torch/utils/gif.py).
  *
  * Built with gcc -O3 -shared -fPIC at first use (dogs_tpu_torch/data/native.py)
  * and loaded with ctypes. Every function keeps its state on its own stack or
  * heap, so threads decode in parallel.
  *
- * Decoder: sequential Huffman JPEG (SOF0, and SOF1 at 8 bits), 1 or 3
- * components at any integral sampling ratio, one or several scans, restart
- * intervals, 8- and 16-bit quantization tables. It reproduces libjpeg's
- * default decompression (libjpeg-turbo's as PIL calls it) step for step:
+ * Decoder: Huffman JPEG, sequential (SOF0, and SOF1 at 8 bits) and
+ * progressive (SOF2), 1 or 3 components at any integral sampling ratio, one
+ * or several scans, restart intervals, 8- and 16-bit quantization tables. A
+ * sequential scan is decoded straight into the component's plane; a
+ * progressive file's scans (DC first and refinement, AC first with
+ * end-of-band runs, AC refinement with correction bits, jdphuff.c) build a
+ * coefficient buffer of the whole image, which goes through the IDCT at EOI.
+ * It reproduces libjpeg's default decompression (libjpeg-turbo's as PIL
+ * calls it) step for step:
  *   - the ISLOW integer IDCT (jidctint.c) with its range-limit table;
  *   - "fancy" upsampling (jdsample.c): h2v1 and h2v2 triangle filters for
  *     components wider than 2 samples, h1v2, edge samples replicated, and
@@ -16,16 +22,21 @@
  *   - YCbCr -> RGB in 16-bit fixed point (jdcolor.c);
  *   - the colour space rule of jdapimin.c (JFIF, Adobe transform, component
  *     ids), and no EXIF rotation.
- * Progressive, lossless, hierarchical and arithmetic-coded files, precisions
- * other than 8 bits and 2- or 4-component files return JPEG_UNSUPPORTED; a
- * stream that ends early, a bad Huffman code or table, a missing restart
- * marker or an inconsistent header returns JPEG_CORRUPT. The caller's output
- * is written only after the whole stream has decoded.
+ * libjpeg's block smoothing (jdcoefct.c) is not: it changes a progressive
+ * image only while bits of coefficients 1-9 are still unsent at output,
+ * so such a file returns JPEG_UNSUPPORTED, as do lossless, hierarchical and
+ * arithmetic-coded files, precisions other than 8 bits and 2- or
+ * 4-component files; a stream that ends early (a progressive one without
+ * its EOI), a bad Huffman code or table, a missing restart marker or an
+ * inconsistent header returns JPEG_CORRUPT. The caller's output is written
+ * only after the whole stream has decoded.
  *
- * Encoder: baseline, 1 or 3 components, Y sampling 1x1, 2x1, 2x2 or 1x2, the
- * Annex K quantization tables scaled by libjpeg's quality rule and the
- * Annex K Huffman tables, libjpeg's RGB -> YCbCr, downsampling and ISLOW
- * forward DCT, optional restart interval.
+ * Encoder: 1 or 3 components, Y sampling 1x1, 2x1, 2x2 or 1x2, the Annex K
+ * quantization tables scaled by libjpeg's quality rule, libjpeg's RGB ->
+ * YCbCr, downsampling and ISLOW forward DCT, optional restart interval;
+ * baseline with the Annex K Huffman tables, or progressive with libjpeg's
+ * simple progression and Huffman tables optimized per scan (jcphuff.c,
+ * jchuff.c), over the same quantized coefficients.
  *
  * GIF: LZW coding of 8-bit indices into GIF data sub-blocks.
  */
@@ -87,13 +98,20 @@ typedef struct {
     uint8_t *plane;
     int pred;            /* DC predictor */
     int decoded;         /* its scan has been read */
+    /* progressive: every block's coefficients (natural order, stride / 8
+     * blocks a row), the quantization table latched at the component's
+     * first scan, and for each coefficient (zigzag index) the point
+     * transform Al of its last scan, -1 before any (libjpeg's coef_bits) */
+    int16_t *coef;
+    uint16_t q[64];
+    int coef_bits[64];
 } Component;
 
 typedef struct {
     const uint8_t *data;
     long size, pos;
     int width, height, ncomp, maxh, maxv, mcux, mcuy;
-    int frame, restart_interval;
+    int frame, progressive, restart_interval;
     int saw_jfif, saw_adobe, adobe_transform;
     uint16_t qt[4][64]; /* natural order */
     int qt_defined[4];
@@ -102,6 +120,7 @@ typedef struct {
     /* entropy-coded data: MSB-first bit accumulator */
     uint64_t acc;
     int nbits, padbits, marker_hit;
+    int eobrun; /* progressive AC scans: blocks left in the current end-of-band run */
     jmp_buf fail_jump;
     char *err;
     int errlen;
@@ -250,8 +269,10 @@ static void read_sof(Decoder *d, int marker) {
         c->dh = (int)(((long)d->height * c->v + d->maxv - 1) / d->maxv);
         c->stride = d->mcux * c->h * 8;
         c->rows = d->mcuy * c->v * 8;
+        for (int k = 0; k < 64; k++) c->coef_bits[k] = -1;
     }
     d->frame = 1;
+    d->progressive = marker == 0xC2;
 }
 
 static void read_app(Decoder *d, int marker) {
@@ -450,6 +471,12 @@ static void idct_islow(const int16_t *coef, const uint16_t *q, uint8_t *out, int
     }
 }
 
+/* A block that consumed the zeros fill() shifts in past the data ran off
+ * its end. */
+static inline void check_padding(Decoder *d) {
+    if (d->padbits > d->nbits) fail(d, JPEG_CORRUPT, "truncated: the entropy-coded data ends before the image does");
+}
+
 static void decode_block(Decoder *d, Component *c, uint8_t *out) {
     int16_t coef[64];
     memset(coef, 0, sizeof(coef));
@@ -473,7 +500,7 @@ static void decode_block(Decoder *d, Component *c, uint8_t *out) {
             k += 15;
         }
     }
-    if (d->padbits > d->nbits) fail(d, JPEG_CORRUPT, "truncated: the entropy-coded data ends before the image does");
+    check_padding(d);
     idct_islow(coef, d->qt[c->tq], out, c->stride);
 }
 
@@ -496,12 +523,115 @@ static int next_marker_after_data(Decoder *d) {
     return d->data[d->pos++];
 }
 
+/* ---- progressive scans (jdphuff.c) -------------------------------------- */
+
+/* DC first scan: the DC difference, point-transformed by al. */
+static void dc_first(Decoder *d, Component *c, int16_t *blk, int al) {
+    if (d->nbits < 32) fill(d);
+    int s = huff_decode(d, &d->dc[c->td]);
+    if (s) s = extend(get_bits(d, s), s);
+    c->pred += s;
+    blk[0] = (int16_t)(int)((unsigned)c->pred << al);
+}
+
+/* DC refinement: one more bit of the DC value. */
+static void dc_refine(Decoder *d, int16_t *blk, int al) {
+    if (get_bits(d, 1)) blk[0] = (int16_t)(blk[0] | (1 << al));
+}
+
+/* AC first scan of the band ss..se (zigzag): run-length coded values with
+ * end-of-band runs that span blocks. */
+static void ac_first(Decoder *d, Component *c, int16_t *blk, int ss, int se, int al) {
+    if (d->eobrun > 0) {
+        d->eobrun--;
+        return;
+    }
+    const HuffTable *ac = &d->ac[c->ta];
+    for (int k = ss; k <= se; k++) {
+        if (d->nbits < 32) fill(d);
+        int rs = huff_decode(d, ac), r = rs >> 4, s = rs & 15;
+        if (s) {
+            k += r;
+            if (k > se) fail(d, JPEG_CORRUPT, "corrupt: an AC run past the end of a spectral band");
+            blk[ZIGZAG[k]] = (int16_t)(int)((unsigned)extend(get_bits(d, s), s) << al);
+        } else if (r == 15) {
+            k += 15;
+        } else {
+            d->eobrun = 1 << r;
+            if (r) d->eobrun += get_bits(d, r);
+            d->eobrun--;
+            break;
+        }
+    }
+}
+
+/* One correction bit for a coefficient already nonzero: a 1 moves it one
+ * step of 1 << al away from zero, unless that bit is already set. */
+static inline void correct(Decoder *d, int16_t *coef, int p1) {
+    if (get_bits(d, 1) && (*coef & p1) == 0) *coef = (int16_t)(*coef >= 0 ? *coef + p1 : *coef - p1);
+}
+
+/* AC refinement scan: newly nonzero coefficients of magnitude 1 << al, and
+ * a correction bit for each coefficient already nonzero that the band's
+ * runs pass over, also within an end-of-band run. */
+static void ac_refine(Decoder *d, Component *c, int16_t *blk, int ss, int se, int al) {
+    const int p1 = 1 << al;
+    const HuffTable *ac = &d->ac[c->ta];
+    int k = ss;
+    if (d->eobrun == 0) {
+        for (; k <= se; k++) {
+            if (d->nbits < 32) fill(d);
+            int rs = huff_decode(d, ac), r = rs >> 4, s = rs & 15;
+            if (s) { /* s must be 1; libjpeg warns and reads the sign bit either way */
+                s = get_bits(d, 1) ? p1 : -p1;
+            } else if (r != 15) {
+                d->eobrun = 1 << r;
+                if (r) d->eobrun += get_bits(d, r);
+                break;
+            }
+            /* Pass over the nonzero coefficients (a correction bit each) and
+             * r zero ones; a new value goes into the zero one after them. */
+            do {
+                int16_t *coef = blk + ZIGZAG[k];
+                if (*coef != 0)
+                    correct(d, coef, p1);
+                else if (--r < 0)
+                    break;
+                k++;
+            } while (k <= se);
+            if (s) {
+                if (k > se) fail(d, JPEG_CORRUPT, "corrupt: an AC run past the end of a spectral band");
+                blk[ZIGZAG[k]] = (int16_t)s;
+            }
+        }
+    }
+    if (d->eobrun > 0) {
+        for (; k <= se; k++)
+            if (blk[ZIGZAG[k]] != 0) correct(d, blk + ZIGZAG[k], p1);
+        d->eobrun--;
+    }
+}
+
 static void read_sos(Decoder *d) {
     long len;
     const uint8_t *p = segment(d, &len);
     if (!d->frame) fail(d, JPEG_CORRUPT, "corrupt: a scan before the frame header");
     int ns = p[0];
     if (ns < 1 || ns > d->ncomp || len < 4 + 2 * ns) fail(d, JPEG_CORRUPT, "corrupt: bad SOS segment");
+    int ss = p[1 + 2 * ns], se = p[2 + 2 * ns], ah = p[3 + 2 * ns] >> 4, al = p[3 + 2 * ns] & 15;
+    /* the scan's kind: 0 sequential, 1 DC first, 2 DC refinement, 3 AC
+     * first, 4 AC refinement */
+    int kind = 0;
+    if (d->progressive) {
+        if (ss == 0 ? se != 0 : se < ss || se > 63 || ns != 1)
+            fail(d, JPEG_CORRUPT, "corrupt: a progressive scan of %d components with spectral selection %d-%d", ns, ss,
+                 se);
+        if ((ah != 0 && al != ah - 1) || al > 13)
+            fail(d, JPEG_CORRUPT, "corrupt: successive approximation Ah %d Al %d", ah, al);
+        kind = (ss == 0 ? 1 : 3) + (ah != 0);
+    } else if (ss != 0 || se != 63 || ah != 0 || al != 0) {
+        fail(d, JPEG_CORRUPT, "corrupt: a sequential scan with spectral selection %d-%d", ss, se);
+    }
     Component *sc[3];
     int blocks = 0;
     for (int i = 0; i < ns; i++) {
@@ -510,28 +640,33 @@ static void read_sos(Decoder *d) {
         for (int k = 0; k < d->ncomp; k++)
             if (d->comp[k].id == id) c = &d->comp[k];
         if (!c) fail(d, JPEG_CORRUPT, "corrupt: the scan names component %d, which the frame lacks", id);
-        if (c->decoded) fail(d, JPEG_CORRUPT, "corrupt: component %d appears in two scans", id);
+        if (c->decoded && !d->progressive) fail(d, JPEG_CORRUPT, "corrupt: component %d appears in two scans", id);
         c->td = tables >> 4;
         c->ta = tables & 15;
-        if (c->td > 3 || c->ta > 3 || !d->dc[c->td].defined || !d->ac[c->ta].defined)
+        int need_dc = kind <= 1, need_ac = kind == 0 || kind >= 3;
+        if (c->td > 3 || c->ta > 3 || (need_dc && !d->dc[c->td].defined) || (need_ac && !d->ac[c->ta].defined))
             fail(d, JPEG_CORRUPT, "corrupt: component %d uses an undefined Huffman table", id);
         if (!d->qt_defined[c->tq]) fail(d, JPEG_CORRUPT, "corrupt: component %d uses an undefined quantization table", id);
         sc[i] = c;
         blocks += c->h * c->v;
     }
-    int ss = p[1 + 2 * ns], se = p[2 + 2 * ns], ahal = p[3 + 2 * ns];
-    if (ss != 0 || se != 63 || ahal != 0) fail(d, JPEG_CORRUPT, "corrupt: a sequential scan with spectral selection %d-%d", ss, se);
     if (ns > 1 && blocks > 10) fail(d, JPEG_CORRUPT, "corrupt: %d blocks in an MCU", blocks);
     for (int i = 0; i < ns; i++) {
         Component *c = sc[i];
-        if (!c->plane) {
+        if (d->progressive && !c->coef) {
+            c->coef = (int16_t *)calloc((size_t)(c->stride / 8) * (c->rows / 8) * 64, sizeof(int16_t));
+            if (!c->coef) fail(d, JPEG_CORRUPT, "out of memory for %dx%d coefficient blocks", c->stride / 8, c->rows / 8);
+            memcpy(c->q, d->qt[c->tq], sizeof(c->q)); /* latched as libjpeg latches it */
+        } else if (!d->progressive && !c->plane) {
             c->plane = (uint8_t *)malloc((size_t)c->stride * c->rows);
             if (!c->plane) fail(d, JPEG_CORRUPT, "out of memory for a %dx%d plane", c->stride, c->rows);
         }
+        for (int k = ss; kind && k <= se; k++) c->coef_bits[k] = al;
         c->pred = 0;
     }
     d->acc = 0;
     d->nbits = d->padbits = d->marker_hit = 0;
+    d->eobrun = 0;
     /* An interleaved scan walks MCUs of h x v blocks of each component; a
      * single-component scan walks that component's own blocks. */
     long nx, ny;
@@ -552,16 +687,27 @@ static void read_sos(Decoder *d) {
                 if (m != 0xD0 + rst) fail(d, JPEG_CORRUPT, "corrupt: expected restart marker RST%d", rst);
                 rst = (rst + 1) & 7;
                 for (int i = 0; i < ns; i++) sc[i]->pred = 0;
+                d->eobrun = 0;
             }
-            if (ns == 1) {
-                Component *c = sc[0];
-                decode_block(d, c, c->plane + my * 8 * c->stride + mx * 8);
-            } else {
-                for (int i = 0; i < ns; i++) {
-                    Component *c = sc[i];
-                    for (int v = 0; v < c->v; v++)
-                        for (int h = 0; h < c->h; h++)
-                            decode_block(d, c, c->plane + ((my * c->v + v) * 8) * c->stride + (mx * c->h + h) * 8);
+            for (int i = 0; i < ns; i++) {
+                Component *c = sc[i];
+                int bh = ns == 1 ? 1 : c->h, bv = ns == 1 ? 1 : c->v;
+                for (int v = 0; v < bv; v++) {
+                    for (int h = 0; h < bh; h++) {
+                        long bx = mx * bh + h, by = my * bv + v;
+                        if (kind == 0) {
+                            decode_block(d, c, c->plane + by * 8 * c->stride + bx * 8);
+                            continue;
+                        }
+                        int16_t *blk = c->coef + 64 * (by * (c->stride / 8) + bx);
+                        switch (kind) {
+                        case 1: dc_first(d, c, blk, al); break;
+                        case 2: dc_refine(d, blk, al); break;
+                        case 3: ac_first(d, c, blk, ss, se, al); break;
+                        default: ac_refine(d, c, blk, ss, se, al); break;
+                        }
+                        check_padding(d);
+                    }
                 }
             }
             count++;
@@ -573,14 +719,41 @@ static void read_sos(Decoder *d) {
     if (m >= 0) d->pos -= 2;
 }
 
+/* After a progressive file's EOI: every component's DC was sent, and no
+ * block needs libjpeg's smoothing (jdcoefct.c:smoothing_ok smooths while
+ * some bits of coefficients 1-9 are still unknown at output, a file that
+ * stops short of its last refinement scans), which this decoder does not
+ * do. Then each block's IDCT into its component's plane. */
+static void finish_progressive(Decoder *d) {
+    for (int i = 0; i < d->ncomp; i++) {
+        Component *c = &d->comp[i];
+        if (c->coef_bits[0] < 0) fail(d, JPEG_CORRUPT, "truncated: EOI before the DC scan of component %d", c->id);
+    }
+    for (int i = 0; i < d->ncomp; i++)
+        for (int k = 1; k < 10; k++)
+            if (d->comp[i].coef_bits[k] != 0)
+                fail(d, JPEG_UNSUPPORTED,
+                     "a progressive JPEG whose scans leave bits of coefficient %d of component %d unsent (libjpeg "
+                     "smooths its blocks) is not supported", k, d->comp[i].id);
+    for (int i = 0; i < d->ncomp; i++) {
+        Component *c = &d->comp[i];
+        c->plane = (uint8_t *)malloc((size_t)c->stride * c->rows);
+        if (!c->plane) fail(d, JPEG_CORRUPT, "out of memory for a %dx%d plane", c->stride, c->rows);
+        long bw = c->stride / 8, bh = c->rows / 8;
+        for (long by = 0; by < bh; by++)
+            for (long bx = 0; bx < bw; bx++)
+                idct_islow(c->coef + 64 * (by * bw + bx), c->q, c->plane + by * 8 * c->stride + bx * 8, c->stride);
+    }
+}
+
 /* Parse up to and including every scan; returns when EOI is read (or the
  * data ends after every component's scan). */
 static void parse(Decoder *d, int header_only) {
     if (d->size < 4 || d->data[0] != 0xFF || d->data[1] != 0xD8) fail(d, JPEG_CORRUPT, "not a JPEG file (no SOI marker)");
     d->pos = 2;
     for (;;) {
-        if (d->pos >= d->size) {
-            int done = d->frame;
+        if (d->pos >= d->size) { /* a sequential file may stop after its last scan; a progressive one has EOI */
+            int done = d->frame && !d->progressive;
             for (int i = 0; i < d->ncomp; i++) done &= d->comp[i].decoded;
             if (done && !header_only) return;
             fail(d, JPEG_CORRUPT, "truncated: the file ends before the image does");
@@ -592,10 +765,10 @@ static void parse(Decoder *d, int header_only) {
         switch (m) {
         case 0xC0:
         case 0xC1:
+        case 0xC2:
             read_sof(d, m);
             if (header_only) return;
             break;
-        case 0xC2: fail(d, JPEG_UNSUPPORTED, "progressive JPEG (SOF2) is not supported");
         case 0xC3: fail(d, JPEG_UNSUPPORTED, "lossless JPEG (SOF3) is not supported");
         case 0xC5: case 0xC6: case 0xC7:
             fail(d, JPEG_UNSUPPORTED, "hierarchical JPEG (SOF%d) is not supported", m - 0xC0);
@@ -616,6 +789,7 @@ static void parse(Decoder *d, int header_only) {
             int done = d->frame;
             for (int i = 0; i < d->ncomp; i++) done &= d->comp[i].decoded;
             if (!done) fail(d, JPEG_CORRUPT, "truncated: EOI before every component was decoded");
+            if (d->progressive) finish_progressive(d);
             return;
         }
         case 0xDC: fail(d, JPEG_UNSUPPORTED, "a DNL marker is not supported");
@@ -737,7 +911,9 @@ static void convert(const Decoder *d, uint8_t *out, uint8_t *rows) {
 static void free_decoder(Decoder *d) {
     for (int i = 0; i < 3; i++) {
         free(d->comp[i].plane);
+        free(d->comp[i].coef);
         d->comp[i].plane = NULL;
+        d->comp[i].coef = NULL;
     }
 }
 
@@ -960,20 +1136,22 @@ static inline int magnitude_bits(int v) {
     return n;
 }
 
-/* Forward DCT, quantization (rounded, as libjpeg divides) and Huffman
- * coding of the 8x8 block at src (stride samples). */
-static void encode_block(Writer *w, const uint8_t *src, long stride, const uint16_t *q, int *pred, const EncTable *dc,
-                         const EncTable *ac) {
+/* Forward DCT and quantization (rounded, as libjpeg divides) of the 8x8
+ * block at src (stride samples) into coef (zigzag order). */
+static void quantize_block(const uint8_t *src, long stride, const uint16_t *q, int16_t *coef) {
     int32_t data[64];
     for (int r = 0; r < 8; r++)
         for (int c = 0; c < 8; c++) data[8 * r + c] = (int32_t)src[r * stride + c] - 128;
     fdct_islow(data);
-    int coef[64];
     for (int k = 0; k < 64; k++) {
         int n = ZIGZAG[k];
         int32_t div = (int32_t)q[n] * 8, v = data[n];
-        coef[k] = v < 0 ? -((-v + div / 2) / div) : (v + div / 2) / div;
+        coef[k] = (int16_t)(v < 0 ? -((-v + div / 2) / div) : (v + div / 2) / div);
     }
+}
+
+/* Huffman coding of one block of a sequential scan. */
+static void encode_block(Writer *w, const int16_t *coef, int *pred, const EncTable *dc, const EncTable *ac) {
     int diff = coef[0] - *pred;
     *pred = coef[0];
     int nb = magnitude_bits(diff);
@@ -1009,13 +1187,302 @@ static void write_dht(Writer *w, int cls, int id, const uint8_t *bits, const uin
     for (int i = 0; i < n; i++) put_byte(w, vals[i]);
 }
 
+/* ---- progressive encoding (jcphuff.c, jchuff.c) ---------------------------- */
+
+#define MAX_CORR_BITS 1000 /* correction bits buffered over an end-of-band run */
+
+/* Huffman code lengths from symbol counts by the Annex K.2 procedure, as
+ * jchuff.c:jpeg_gen_optimal_table builds them: a pseudo-symbol 256 keeps
+ * any code from being all ones, lengths past 16 are folded back, and the
+ * symbols are listed by code length. freq is consumed. */
+static void optimal_table(long *freq, uint8_t *bits, uint8_t *vals) {
+    int codesize[257], others[257], count[64];
+    memset(codesize, 0, sizeof(codesize));
+    memset(count, 0, sizeof(count));
+    for (int i = 0; i < 257; i++) others[i] = -1;
+    freq[256] = 1;
+    for (;;) {
+        int c1 = -1, c2 = -1;
+        long v = -1;
+        for (int i = 0; i < 257; i++) /* the smallest count, the larger symbol on ties */
+            if (freq[i] && (v < 0 || freq[i] <= v)) {
+                v = freq[i];
+                c1 = i;
+            }
+        v = -1;
+        for (int i = 0; i < 257; i++)
+            if (freq[i] && (v < 0 || freq[i] <= v) && i != c1) {
+                v = freq[i];
+                c2 = i;
+            }
+        if (c2 < 0) break;
+        freq[c1] += freq[c2];
+        freq[c2] = 0;
+        codesize[c1]++;
+        while (others[c1] >= 0) {
+            c1 = others[c1];
+            codesize[c1]++;
+        }
+        others[c1] = c2;
+        codesize[c2]++;
+        while (others[c2] >= 0) {
+            c2 = others[c2];
+            codesize[c2]++;
+        }
+    }
+    for (int i = 0; i < 257; i++)
+        if (codesize[i]) count[codesize[i] < 63 ? codesize[i] : 63]++;
+    for (int i = 63; i > 16; i--) {
+        while (count[i] > 0) {
+            int j = i - 2;
+            while (count[j] == 0) j--;
+            count[i] -= 2;
+            count[i - 1]++;
+            count[j + 1] += 2;
+            count[j]--;
+        }
+    }
+    int i = 16;
+    while (count[i] == 0) i--;
+    count[i]--; /* the pseudo-symbol's code goes */
+    bits[0] = 0;
+    for (int l = 1; l <= 16; l++) bits[l] = (uint8_t)count[l];
+    int p = 0;
+    for (int l = 1; l < 64; l++)
+        for (int j = 0; j < 256; j++)
+            if (codesize[j] == l) vals[p++] = (uint8_t)j;
+}
+
+typedef struct {
+    const int16_t *coef; /* zigzag order, bw blocks a row */
+    long bw, nbx, nby;   /* nbx x nby: the blocks a single-component scan covers */
+    int h, v, tbl;       /* sampling, Huffman table id */
+} EncComp;
+
+typedef struct {
+    int ns, comp[3], ss, se, ah, al;
+} Scan;
+
+typedef struct {
+    Writer *w;
+    int gather;        /* count symbols into freq instead of writing codes */
+    long freq[2][257];
+    EncTable tab[2];
+    int tbl;           /* an AC scan's table */
+    int eobrun, be;    /* end-of-band run and its buffered correction bits */
+    uint8_t corr[MAX_CORR_BITS];
+} Prog;
+
+static inline void emit_symbol(Prog *e, int tbl, int sym) {
+    if (e->gather)
+        e->freq[tbl][sym]++;
+    else
+        put_bits(e->w, e->tab[tbl].code[sym], e->tab[tbl].size[sym]);
+}
+
+static inline void emit_bits(Prog *e, uint32_t v, int n) {
+    if (!e->gather) put_bits(e->w, v, n);
+}
+
+static void emit_corr(Prog *e, const uint8_t *bits, int n) {
+    for (int i = 0; i < n; i++) emit_bits(e, bits[i], 1);
+}
+
+static void emit_eobrun(Prog *e) {
+    if (e->eobrun == 0) return;
+    int nb = 0;
+    for (int t = e->eobrun; t >>= 1;) nb++;
+    emit_symbol(e, e->tbl, nb << 4);
+    if (nb) emit_bits(e, (uint32_t)e->eobrun, nb);
+    e->eobrun = 0;
+    emit_corr(e, e->corr, e->be);
+    e->be = 0;
+}
+
+static void enc_dc_first(Prog *e, const int16_t *blk, int *pred, int tbl, int al) {
+    int v = blk[0] >> al; /* arithmetic shift, as libjpeg's IRIGHT_SHIFT */
+    int diff = v - *pred;
+    *pred = v;
+    int nb = magnitude_bits(diff);
+    emit_symbol(e, tbl, nb);
+    if (nb) emit_bits(e, (uint32_t)(diff < 0 ? diff - 1 : diff), nb);
+}
+
+static void enc_ac_first(Prog *e, const int16_t *blk, int ss, int se, int al) {
+    int r = 0;
+    for (int k = ss; k <= se; k++) {
+        int v = blk[k];
+        int mag = (v < 0 ? -v : v) >> al; /* the point transform rounds toward zero */
+        if (mag == 0) {
+            r++;
+            continue;
+        }
+        emit_eobrun(e);
+        while (r > 15) {
+            emit_symbol(e, e->tbl, 0xF0);
+            r -= 16;
+        }
+        int nb = magnitude_bits(mag);
+        emit_symbol(e, e->tbl, (r << 4) + nb);
+        emit_bits(e, (uint32_t)(v < 0 ? ~mag : mag), nb);
+        r = 0;
+    }
+    if (r > 0 && ++e->eobrun == 0x7FFF) emit_eobrun(e);
+}
+
+static void enc_ac_refine(Prog *e, const int16_t *blk, int ss, int se, int al) {
+    int mag[64], eob = 0;
+    for (int k = ss; k <= se; k++) {
+        int v = blk[k];
+        mag[k] = (v < 0 ? -v : v) >> al;
+        if (mag[k] == 1) eob = k; /* the last coefficient that becomes nonzero in this scan */
+    }
+    int r = 0, br = 0;
+    uint8_t *buf = e->corr + e->be; /* this block's correction bits, after the run's */
+    for (int k = ss; k <= se; k++) {
+        if (mag[k] == 0) {
+            r++;
+            continue;
+        }
+        while (r > 15 && k <= eob) { /* ZRLs, unless they fold into an end of band */
+            emit_eobrun(e);
+            emit_symbol(e, e->tbl, 0xF0);
+            r -= 16;
+            emit_corr(e, buf, br);
+            buf = e->corr;
+            br = 0;
+        }
+        if (mag[k] > 1) { /* already nonzero: its next bit, sent with the next symbol */
+            buf[br++] = (uint8_t)(mag[k] & 1);
+            continue;
+        }
+        emit_eobrun(e);
+        emit_symbol(e, e->tbl, (r << 4) + 1);
+        emit_bits(e, blk[k] < 0 ? 0 : 1, 1);
+        emit_corr(e, buf, br);
+        buf = e->corr;
+        br = 0;
+        r = 0;
+    }
+    if (r > 0 || br > 0) {
+        e->eobrun++;
+        e->be += br;
+        if (e->eobrun == 0x7FFF || e->be > MAX_CORR_BITS - 64 + 1) emit_eobrun(e);
+    }
+}
+
+/* One pass over a progressive scan's blocks: counting (e->gather) or
+ * writing, with restart markers every restart_interval MCUs. */
+static void scan_pass(Prog *e, const Scan *sc, const EncComp *comps, long mcux, long mcuy, int restart_interval) {
+    int pred[3] = {0, 0, 0};
+    e->eobrun = e->be = 0;
+    const EncComp *c0 = &comps[sc->comp[0]];
+    long nx = sc->ns == 1 ? c0->nbx : mcux, ny = sc->ns == 1 ? c0->nby : mcuy;
+    long count = 0;
+    int rst = 0;
+    for (long my = 0; my < ny; my++) {
+        for (long mx = 0; mx < nx; mx++) {
+            if (restart_interval && count > 0 && count % restart_interval == 0) {
+                emit_eobrun(e);
+                if (!e->gather) {
+                    flush_bits(e->w);
+                    put_u16(e->w, 0xFFD0 + rst);
+                }
+                rst = (rst + 1) & 7;
+                pred[0] = pred[1] = pred[2] = 0;
+            }
+            for (int i = 0; i < sc->ns; i++) {
+                const EncComp *c = &comps[sc->comp[i]];
+                int bh = sc->ns == 1 ? 1 : c->h, bv = sc->ns == 1 ? 1 : c->v;
+                for (int v = 0; v < bv; v++) {
+                    for (int h = 0; h < bh; h++) {
+                        const int16_t *blk = c->coef + 64 * ((my * bv + v) * c->bw + mx * bh + h);
+                        if (sc->ss == 0 && sc->ah == 0)
+                            enc_dc_first(e, blk, &pred[i], c->tbl, sc->al);
+                        else if (sc->ss == 0)
+                            emit_bits(e, (uint32_t)(blk[0] >> sc->al), 1); /* DC refinement: bit al */
+                        else if (sc->ah == 0)
+                            enc_ac_first(e, blk, sc->ss, sc->se, sc->al);
+                        else
+                            enc_ac_refine(e, blk, sc->ss, sc->se, sc->al);
+                    }
+                }
+            }
+            count++;
+        }
+    }
+    emit_eobrun(e);
+}
+
+/* libjpeg's jpeg_simple_progression script: 10 scans for YCbCr, 6 for grey. */
+static int simple_progression(int channels, Scan *out) {
+    static const Scan YCC[10] = {
+        {3, {0, 1, 2}, 0, 0, 0, 1}, {1, {0}, 1, 5, 0, 2},  {1, {2}, 1, 63, 0, 1}, {1, {1}, 1, 63, 0, 1},
+        {1, {0}, 6, 63, 0, 2},      {1, {0}, 1, 63, 2, 1}, {3, {0, 1, 2}, 0, 0, 1, 0}, {1, {2}, 1, 63, 1, 0},
+        {1, {1}, 1, 63, 1, 0},      {1, {0}, 1, 63, 1, 0}};
+    static const Scan GREY[6] = {{1, {0}, 0, 0, 0, 1}, {1, {0}, 1, 5, 0, 2},  {1, {0}, 6, 63, 0, 2},
+                                 {1, {0}, 1, 63, 2, 1}, {1, {0}, 0, 0, 1, 0}, {1, {0}, 1, 63, 1, 0}};
+    int n = channels == 3 ? 10 : 6;
+    memcpy(out, channels == 3 ? YCC : GREY, (size_t)n * sizeof(Scan));
+    return n;
+}
+
+/* Every scan of a progressive file: per scan, a counting pass, the
+ * optimal Huffman tables of the tables it uses (DHT), its SOS and its
+ * entropy-coded data. Returns 0, or -1 when out of memory. */
+static int encode_progressive(Writer *w, const EncComp *comps, int channels, long mcux, long mcuy, int restart_interval) {
+    Scan script[10];
+    int nscans = simple_progression(channels, script);
+    Prog *e = (Prog *)calloc(1, sizeof(Prog));
+    if (!e) return -1;
+    e->w = w;
+    for (int s = 0; s < nscans; s++) {
+        const Scan *sc = &script[s];
+        int dc = sc->ss == 0;
+        e->tbl = comps[sc->comp[0]].tbl;
+        if (!(dc && sc->ah)) { /* a DC refinement scan codes raw bits, no table */
+            memset(e->freq, 0, sizeof(e->freq));
+            e->gather = 1;
+            scan_pass(e, sc, comps, mcux, mcuy, restart_interval);
+            for (int t = 0; t < 2; t++) {
+                int used = 0;
+                for (int i = 0; i < sc->ns; i++) used |= comps[sc->comp[i]].tbl == t;
+                if (!used) continue;
+                uint8_t bits[17], vals[256];
+                optimal_table(e->freq[t], bits, vals);
+                build_enc_table(&e->tab[t], bits, vals);
+                write_dht(w, dc ? 0 : 1, t, bits, vals);
+            }
+        }
+        put_u16(w, 0xFFDA);
+        put_u16(w, 6 + 2 * sc->ns);
+        put_byte(w, (uint8_t)sc->ns);
+        for (int i = 0; i < sc->ns; i++) {
+            int t = comps[sc->comp[i]].tbl;
+            put_byte(w, (uint8_t)(sc->comp[i] + 1));
+            put_byte(w, (uint8_t)(dc ? t << 4 : t));
+        }
+        put_byte(w, (uint8_t)sc->ss);
+        put_byte(w, (uint8_t)sc->se);
+        put_byte(w, (uint8_t)((sc->ah << 4) | sc->al));
+        e->gather = 0;
+        scan_pass(e, sc, comps, mcux, mcuy, restart_interval);
+        flush_bits(w);
+        if (w->oom) break;
+    }
+    free(e);
+    return w->oom ? -1 : 0;
+}
+
 /* Encode an (height, width, channels) uint8 image, channels 1 or 3, luma
  * sampled hs x vs (1x1, 2x1, 2x2 or 1x2) against chroma 1x1, at libjpeg
  * quality 1..100, with a restart marker every restart_interval MCUs (0:
- * none). Returns a malloc'd buffer (free with jpeg_free) and its size, or
- * NULL. */
+ * none), as a baseline file or (progressive != 0) a progressive one with
+ * libjpeg's simple progression and optimized Huffman tables; both carry the
+ * same quantized coefficients. Returns a malloc'd buffer (free with
+ * jpeg_free) and its size, or NULL. */
 uint8_t *jpeg_encode(const uint8_t *img, int width, int height, int channels, int quality, int hs, int vs,
-                     int restart_interval, long *out_size) {
+                     int restart_interval, int progressive, long *out_size) {
     *out_size = 0;
     if (width < 1 || height < 1 || width > 65535 || height > 65535 || (channels != 1 && channels != 3)) return NULL;
     if (channels == 1) hs = vs = 1;
@@ -1029,11 +1496,6 @@ uint8_t *jpeg_encode(const uint8_t *img, int width, int height, int channels, in
         qt[0][i] = (uint16_t)(a < 1 ? 1 : a > 255 ? 255 : a);
         qt[1][i] = (uint16_t)(b < 1 ? 1 : b > 255 ? 255 : b);
     }
-    EncTable dc_t[2], ac_t[2];
-    build_enc_table(&dc_t[0], DC_LUMA_BITS, DC_VALS);
-    build_enc_table(&dc_t[1], DC_CHROMA_BITS, DC_VALS);
-    build_enc_table(&ac_t[0], AC_LUMA_BITS, AC_LUMA_VALS);
-    build_enc_table(&ac_t[1], AC_CHROMA_BITS, AC_CHROMA_VALS);
 
     /* Colour conversion (jccolor.c) into planes padded to whole MCUs by
      * replicating the last column and row, then chroma downsampling with
@@ -1043,6 +1505,7 @@ uint8_t *jpeg_encode(const uint8_t *img, int width, int height, int channels, in
     long cw = pw / hs, ch = ph / vs;
     uint8_t *planes[3] = {NULL, NULL, NULL};
     uint8_t *full_c[2] = {NULL, NULL};
+    int16_t *coef[3] = {NULL, NULL, NULL};
     Writer w = {0};
     uint8_t *result = NULL;
     planes[0] = (uint8_t *)malloc((size_t)(pw * ph));
@@ -1096,6 +1559,19 @@ uint8_t *jpeg_encode(const uint8_t *img, int width, int height, int channels, in
         }
     }
 
+    /* Every block's quantized coefficients. */
+    EncComp comps[3];
+    for (int c = 0; c < channels; c++) {
+        long plw = c ? cw : pw, plh = c ? ch : ph;
+        long dw = c ? (width + hs - 1) / hs : width, dh = c ? (height + vs - 1) / vs : height;
+        coef[c] = (int16_t *)malloc((size_t)(plw / 8) * (plh / 8) * 64 * sizeof(int16_t));
+        if (!coef[c]) goto done;
+        for (long by = 0; by < plh / 8; by++)
+            for (long bx = 0; bx < plw / 8; bx++)
+                quantize_block(planes[c] + by * 8 * plw + bx * 8, plw, qt[c ? 1 : 0], coef[c] + 64 * (by * (plw / 8) + bx));
+        comps[c] = (EncComp){coef[c], plw / 8, (dw + 7) / 8, (dh + 7) / 8, c ? 1 : hs, c ? 1 : vs, c ? 1 : 0};
+    }
+
     w.cap = pw * ph / 4 + 4096;
     w.buf = (uint8_t *)malloc((size_t)w.cap);
     if (!w.buf) goto done;
@@ -1111,7 +1587,7 @@ uint8_t *jpeg_encode(const uint8_t *img, int width, int height, int channels, in
         put_byte(&w, (uint8_t)t);
         for (int k = 0; k < 64; k++) put_byte(&w, (uint8_t)qt[t][ZIGZAG[k]]);
     }
-    put_u16(&w, 0xFFC0);
+    put_u16(&w, progressive ? 0xFFC2 : 0xFFC0);
     put_u16(&w, 8 + 3 * channels);
     put_byte(&w, 8);
     put_u16(&w, height);
@@ -1122,28 +1598,37 @@ uint8_t *jpeg_encode(const uint8_t *img, int width, int height, int channels, in
         put_byte(&w, c == 0 ? (uint8_t)((hs << 4) | vs) : 0x11);
         put_byte(&w, c == 0 ? 0 : 1);
     }
-    write_dht(&w, 0, 0, DC_LUMA_BITS, DC_VALS);
-    write_dht(&w, 1, 0, AC_LUMA_BITS, AC_LUMA_VALS);
-    if (channels == 3) {
-        write_dht(&w, 0, 1, DC_CHROMA_BITS, DC_VALS);
-        write_dht(&w, 1, 1, AC_CHROMA_BITS, AC_CHROMA_VALS);
+    if (!progressive) {
+        write_dht(&w, 0, 0, DC_LUMA_BITS, DC_VALS);
+        write_dht(&w, 1, 0, AC_LUMA_BITS, AC_LUMA_VALS);
+        if (channels == 3) {
+            write_dht(&w, 0, 1, DC_CHROMA_BITS, DC_VALS);
+            write_dht(&w, 1, 1, AC_CHROMA_BITS, AC_CHROMA_VALS);
+        }
     }
     if (restart_interval) {
         put_u16(&w, 0xFFDD);
         put_u16(&w, 4);
         put_u16(&w, restart_interval);
     }
-    put_u16(&w, 0xFFDA);
-    put_u16(&w, 6 + 2 * channels);
-    put_byte(&w, (uint8_t)channels);
-    for (int c = 0; c < channels; c++) {
-        put_byte(&w, (uint8_t)(c + 1));
-        put_byte(&w, c == 0 ? 0x00 : 0x11);
-    }
-    put_byte(&w, 0);
-    put_byte(&w, 63);
-    put_byte(&w, 0);
-    {
+    if (progressive) {
+        if (encode_progressive(&w, comps, channels, mcux, mcuy, restart_interval)) goto done;
+    } else {
+        EncTable dc_t[2], ac_t[2];
+        build_enc_table(&dc_t[0], DC_LUMA_BITS, DC_VALS);
+        build_enc_table(&dc_t[1], DC_CHROMA_BITS, DC_VALS);
+        build_enc_table(&ac_t[0], AC_LUMA_BITS, AC_LUMA_VALS);
+        build_enc_table(&ac_t[1], AC_CHROMA_BITS, AC_CHROMA_VALS);
+        put_u16(&w, 0xFFDA);
+        put_u16(&w, 6 + 2 * channels);
+        put_byte(&w, (uint8_t)channels);
+        for (int c = 0; c < channels; c++) {
+            put_byte(&w, (uint8_t)(c + 1));
+            put_byte(&w, c == 0 ? 0x00 : 0x11);
+        }
+        put_byte(&w, 0);
+        put_byte(&w, 63);
+        put_byte(&w, 0);
         int pred[3] = {0, 0, 0};
         long count = 0;
         int rst = 0;
@@ -1157,16 +1642,16 @@ uint8_t *jpeg_encode(const uint8_t *img, int width, int height, int channels, in
                 }
                 for (int v = 0; v < vs; v++)
                     for (int h = 0; h < hs; h++)
-                        encode_block(&w, planes[0] + (my * 8 * vs + v * 8) * pw + mx * 8 * hs + h * 8, pw, qt[0],
-                                     &pred[0], &dc_t[0], &ac_t[0]);
+                        encode_block(&w, coef[0] + 64 * ((my * vs + v) * comps[0].bw + mx * hs + h), &pred[0],
+                                     &dc_t[0], &ac_t[0]);
                 for (int c = 1; c < channels; c++)
-                    encode_block(&w, planes[c] + my * 8 * cw + mx * 8, cw, qt[1], &pred[c], &dc_t[1], &ac_t[1]);
+                    encode_block(&w, coef[c] + 64 * (my * comps[c].bw + mx), &pred[c], &dc_t[1], &ac_t[1]);
                 count++;
             }
             if (w.oom) goto done;
         }
+        flush_bits(&w);
     }
-    flush_bits(&w);
     put_u16(&w, 0xFFD9);
     if (w.oom) goto done;
     result = w.buf;
@@ -1174,7 +1659,10 @@ uint8_t *jpeg_encode(const uint8_t *img, int width, int height, int channels, in
     *out_size = w.len;
 done:
     free(w.buf);
-    for (int i = 0; i < 3; i++) free(planes[i]);
+    for (int i = 0; i < 3; i++) {
+        free(planes[i]);
+        free(coef[i]);
+    }
     free(full_c[0]);
     free(full_c[1]);
     return result;

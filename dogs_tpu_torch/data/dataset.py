@@ -13,11 +13,13 @@ Camera) and numpy images.
     MatrixCity's test folder,
   * the spheric test trajectory.
 
-Images decode without PIL or imageio: PNG files through utils/png.py and
-baseline JPEG files through utils/jpeg.py (a C decoder equal to PIL's
-libjpeg decode). Only a JPEG process that decoder does not implement
-(progressive, CMYK) and other formats need PIL, imported at the call; where
-it is missing they raise naming the file. Resizes run in torch
+Images decode without PIL or imageio: PNG files (plain and Adam7, the row
+filters undone in C) through utils/png.py and JPEG files, baseline and
+progressive, through utils/jpeg.py (a C decoder equal to PIL's libjpeg
+decode bit for bit). Only a JPEG that decoder does not implement (CMYK,
+12-bit, lossless, arithmetic-coded, a progressive file that libjpeg would
+smooth) and other formats need PIL, imported at the call; where it is
+missing they raise naming the file. Resizes run in torch
 (`interpolate(mode="bilinear", antialias=True)`, which follows PIL's
 BILINEAR filter; the result differs from PIL's uint8 resize by at most one
 8-bit level), and the caches are written by the port's PNG writer. The
@@ -346,7 +348,7 @@ IMAGE_EXTS = (".jpg", ".jpeg", ".png", ".JPG", ".JPEG", ".PNG")
 CACHE_SUFFIX = "_torch"
 
 
-# Threads of the minify (the decoders, the resize and zlib release the
+# Threads of the minify (the C decoders, zlib and the resize release the
 # interpreter lock), as many as the lazy reader's.
 MINIFY_THREADS = 8
 
@@ -463,10 +465,11 @@ def meganerf_val_names(root_dir: str, scene_name: str) -> set[str] | None:
 def decode_image(path: str) -> np.ndarray:
     """The file's pixels as stored (uint8 or uint16, (H, W[, C])), by the
     file's signature, whatever its name: PNG data through utils/png.py,
-    JPEG data through utils/jpeg.py (a truncated or corrupt JPEG raises
-    ValueError). A JPEG process that decoder does not implement
-    (progressive, CMYK) and any other format go to PIL, and raise naming the
-    file where PIL is missing."""
+    JPEG data, baseline or progressive, through utils/jpeg.py (a truncated
+    or corrupt JPEG raises ValueError). A JPEG that decoder does not
+    implement (`UnsupportedJpeg`: CMYK, 12-bit, lossless, arithmetic-coded,
+    a progressive file libjpeg would smooth) and any other format go to PIL,
+    and raise naming the file where PIL is missing."""
     if png.is_png(path):
         return png.read_png(path)
     reason = f"{path}: neither PNG nor JPEG data"

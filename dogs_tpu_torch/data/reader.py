@@ -2,8 +2,9 @@
 
 Port of dogs_tpu/data/reader.py's `LazyImageList` (its `ImageReader` has no
 caller in either package and is not ported). A pool of loader threads
-decodes images ahead of the training loop (PNG decoding in zlib and numpy
-releases the interpreter lock for most of its work). `LazyImageList` is the trainer's
+decodes images ahead of the training loop (the JPEG decoder and the PNG
+reader's zlib and row filters run in C and release the interpreter lock, so
+the threads decode in parallel). `LazyImageList` is the trainer's
 `images` sequence on real datasets: images stay on disk and stream through
 the threads, `hint(order)` starts the next epoch's decodes, and the numpy
 images it hands out go to the trainer's device cache.

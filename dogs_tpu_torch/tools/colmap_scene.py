@@ -1,7 +1,7 @@
 """Write a COLMAP scene rendered from a Gaussian model, with known
 per-image perturbations, for training the port on a real-data path.
 
-    python -m dogs_tpu_torch.tools.colmap_scene OUT_DIR [--device cpu] [--format {png,jpeg}]
+    python -m dogs_tpu_torch.tools.colmap_scene OUT_DIR [--device cpu] [--format {png,jpeg,jpeg-progressive}]
 
 writes OUT_DIR/scene/{images/*.png, sparse/0/{cameras,images,points3D}.bin}
 from bench.py's scene model (random weights from a seed, SH degree 3; the
@@ -10,7 +10,10 @@ CLI_HEIGHT, a CPU-sized scene) at cameras like bench.py's (looking into the
 scene box, centres spread on a small arc). `--format jpeg` writes
 images/*.JPG instead: the first JPEG_420_IMAGES at 4:2:0 and quality 95,
 the rest at 4:2:2 and quality 90 with a restart marker every MCU row, as
-drone cameras write them. Every image but image 0 (the gauge) carries a
+drone cameras write them; `--format jpeg-progressive` writes the same
+settings as progressive files (the same quantized coefficients, so they
+decode to the baseline files' pixels), as web and phone exports write
+them. Every image but image 0 (the gauge) carries a
 known 3x4 exposure near identity, a smooth multiplicative shading and pose
 noise on its stored pose; all images are distorted by the OPENCV camera's
 k1 and upsampled (x2 by default) before they are written, so that
@@ -45,6 +48,7 @@ from dogs_tpu_torch.utils.png import write_png
 
 UPSAMPLE = 2  # written images are this many times the rendered size (the default)
 JPEG_420_IMAGES = 9  # --format jpeg: images 0-8 at 4:2:0, quality 95; the rest at 4:2:2, quality 90
+FORMATS = ("png", "jpeg", "jpeg-progressive")
 K1 = -0.02  # OPENCV radial distortion (barrel: every pixel stays in frame)
 EXPOSURE_SIGMA = 0.03  # of each 3x3 entry; the offsets get half
 SHADING = 0.05  # amplitude of the smooth multiplicative field
@@ -87,27 +91,29 @@ def _distort(img: torch.Tensor, fx: float, fy: float, cx: float, cy: float, k1: 
     return out[0].permute(1, 2, 0)
 
 
-def _write_image(path: str, img: np.ndarray, i: int) -> None:
-    """PNG at zlib level 1, or JPEG as the module docstring says (by the
-    name's extension)."""
-    if path.endswith(".png"):
+def write_image(path: str, img: np.ndarray, i: int, fmt: str) -> None:
+    """Image i of a scene in format `fmt` (one of FORMATS): PNG at zlib
+    level 1, or JPEG as the module docstring says."""
+    progressive = fmt == "jpeg-progressive"
+    if fmt == "png":
         write_png(path, img, level=1)
     elif i < JPEG_420_IMAGES:
-        write_jpeg(path, img, quality=95, subsampling="4:2:0")
+        write_jpeg(path, img, quality=95, subsampling="4:2:0", progressive=progressive)
     else:
-        write_jpeg(path, img, quality=90, subsampling="4:2:2", restart_interval=-(-img.shape[1] // 16))
+        write_jpeg(path, img, quality=90, subsampling="4:2:2", restart_interval=-(-img.shape[1] // 16),
+                   progressive=progressive)
 
 
 def write_scene(root: str, params: GaussianParams, cameras: list[Camera], fmt: str = "png",
                 upsample: int = UPSAMPLE) -> dict[str, np.ndarray]:
     """Render `params` at each camera and write the scene under `root` (see
     the module docstring), its images `upsample` times the cameras' size as
-    `fmt` ("png" or "jpeg") files. Returns {"exposure": (n, 3, 4),
+    `fmt` files (one of FORMATS). Returns {"exposure": (n, 3, 4),
     "pose_delta": (n, 6)}: image i's true exposure and the delta [rho, w]
     that maps its stored pose onto the rendered one (identity and zeros for
     image 0)."""
-    if fmt not in ("png", "jpeg"):
-        raise ValueError(f"format {fmt!r}: expected 'png' or 'jpeg'")
+    if fmt not in FORMATS:
+        raise ValueError(f"format {fmt!r}: expected one of {FORMATS}")
     rng = np.random.RandomState(0)
     n = len(cameras)
     cam0 = cameras[0]
@@ -145,8 +151,8 @@ def write_scene(root: str, params: GaussianParams, cameras: list[Camera], fmt: s
             big = F.interpolate(img.permute(2, 0, 1)[None], scale_factor=upsample, mode="bilinear",
                                 align_corners=False)[0].permute(1, 2, 0)
             name = f"frame_{i:03d}." + ("png" if fmt == "png" else "JPG")
-            writes.append(pool.submit(_write_image, os.path.join(image_dir, name),
-                                      torch.clamp(big * 255.0 + 0.5, 0, 255).to(torch.uint8).cpu().numpy(), i))
+            writes.append(pool.submit(write_image, os.path.join(image_dir, name),
+                                      torch.clamp(big * 255.0 + 0.5, 0, 255).to(torch.uint8).cpu().numpy(), i, fmt))
             images[i + 1] = colmap.ColmapImage(i + 1, rotmat_to_quat(torch.as_tensor(R)).numpy(), t, 1, name)
         for job in writes:
             job.result()
@@ -170,7 +176,7 @@ def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("out_dir")
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--format", choices=("png", "jpeg"), default="png")
+    ap.add_argument("--format", choices=FORMATS, default="png")
     args = ap.parse_args(argv)
     focal = 1000.0 * CLI_WIDTH / 1152  # bench.py's field of view
     cams = make_cameras(CLI_IMAGES, CLI_WIDTH, CLI_HEIGHT, focal, args.device)

@@ -1,21 +1,26 @@
-"""JPEG files without PIL: a baseline decoder and encoder in C
+"""JPEG files without PIL: a decoder and an encoder in C
 (`csrc/jpeg_codec.c`), bound with ctypes.
 
-The decoder reads sequential Huffman JPEG (SOF0, and SOF1 at 8 bits) with 1
-or 3 components, every integral chroma subsampling (4:4:4, 4:2:2, 4:2:0,
-4:4:0, ...), restart intervals and several tables, and returns what
-`np.asarray(PIL.Image.open(path))` returns: uint8 (H, W, 3) or (H, W),
-decoded as libjpeg decodes by default (the ISLOW IDCT, fancy upsampling,
-fixed-point YCbCr -> RGB), with no EXIF rotation. A process it does not
-implement (progressive, lossless, hierarchical, arithmetic coding, 12-bit
-samples, 4-component CMYK / YCCK) raises `UnsupportedJpeg`; a truncated or
+The decoder reads Huffman-coded JPEG, sequential (SOF0, and SOF1 at 8 bits)
+and progressive (SOF2: spectral selection and successive approximation,
+end-of-band runs), with 1 or 3 components, every integral chroma
+subsampling (4:4:4, 4:2:2, 4:2:0, 4:4:0, ...), restart intervals and
+several tables, and returns what `np.asarray(PIL.Image.open(path))`
+returns, bit for bit: uint8 (H, W, 3) or (H, W), decoded as libjpeg decodes
+by default (the ISLOW IDCT, fancy upsampling, fixed-point YCbCr -> RGB),
+with no EXIF rotation. A process it does not implement (lossless,
+hierarchical, arithmetic coding, 12-bit samples, 4-component CMYK / YCCK)
+raises `UnsupportedJpeg`, and so does a progressive file whose scans leave
+bits of coefficients 1-9 unsent, which libjpeg would smooth; a truncated or
 corrupt stream raises `ValueError`; both name the file. No partial image is
 returned.
 
 The encoder writes baseline JFIF files (libjpeg's quality scaling of the
 Annex K tables, the Annex K Huffman tables, 4:4:4, 4:2:2, 4:2:0 or 4:4:0,
-an optional restart interval), so that a JPEG dataset can be written where
-PIL is missing.
+an optional restart interval), or progressive ones of the same quantized
+coefficients (libjpeg's `jpeg_simple_progression` script, Huffman tables
+optimized per scan), so that a JPEG dataset can be written where PIL is
+missing.
 
 The library builds with gcc at first use (`data/native.py:build`) and holds
 no global state: ctypes releases the interpreter lock during each call, so
@@ -60,7 +65,7 @@ def load() -> ctypes.CDLL:
     lib.jpeg_header.restype = _int
     lib.jpeg_decode.argtypes = [ctypes.c_char_p, _long, _ptr, _int, _int, _int, ctypes.c_char_p, _int]
     lib.jpeg_decode.restype = _int
-    lib.jpeg_encode.argtypes = [_ptr, _int, _int, _int, _int, _int, _int, _int, ctypes.POINTER(_long)]
+    lib.jpeg_encode.argtypes = [_ptr, _int, _int, _int, _int, _int, _int, _int, _int, ctypes.POINTER(_long)]
     lib.jpeg_encode.restype = ctypes.POINTER(ctypes.c_uint8)
     lib.jpeg_free.argtypes = [_ptr]
     lib.jpeg_free.restype = None
@@ -102,11 +107,14 @@ def read_jpeg(path: str) -> np.ndarray:
     return decode_jpeg(data, path)
 
 
-def encode_jpeg(img: np.ndarray, quality: int = 95, subsampling: str = "4:2:0", restart_interval: int = 0) -> bytes:
-    """A baseline JFIF file of an (H, W) grey or (H, W, 3) RGB uint8 array at
-    libjpeg `quality` (1-100), chroma `subsampling` (a key of SUBSAMPLING;
-    ignored for grey) and a restart marker every `restart_interval` MCUs
-    (0: none)."""
+def encode_jpeg(img: np.ndarray, quality: int = 95, subsampling: str = "4:2:0", restart_interval: int = 0,
+                progressive: bool = False) -> bytes:
+    """A JFIF file of an (H, W) grey or (H, W, 3) RGB uint8 array at libjpeg
+    `quality` (1-100), chroma `subsampling` (a key of SUBSAMPLING; ignored
+    for grey) and a restart marker every `restart_interval` MCUs (0: none),
+    baseline or `progressive` (libjpeg's simple progression, 10 scans for
+    RGB and 6 for grey, tables optimized per scan). The progressive file
+    decodes to the baseline file's pixels."""
     img = np.ascontiguousarray(img)
     if img.dtype != np.uint8 or not (img.ndim == 2 or (img.ndim == 3 and img.shape[2] in (1, 3))):
         raise ValueError(f"expected an (H, W) or (H, W, 3) uint8 array, got {img.dtype} {img.shape}")
@@ -117,7 +125,8 @@ def encode_jpeg(img: np.ndarray, quality: int = 95, subsampling: str = "4:2:0", 
     hs, vs = SUBSAMPLING[subsampling]
     size = _long()
     lib = load()
-    buf = lib.jpeg_encode(img.ctypes.data, w, h, c, int(quality), hs, vs, int(restart_interval), ctypes.byref(size))
+    buf = lib.jpeg_encode(img.ctypes.data, w, h, c, int(quality), hs, vs, int(restart_interval), int(progressive),
+                          ctypes.byref(size))
     if not buf:
         raise ValueError(f"cannot encode a {w}x{h}x{c} image (at most 65535 a side, restart interval 0-65535)")
     try:
@@ -127,8 +136,8 @@ def encode_jpeg(img: np.ndarray, quality: int = 95, subsampling: str = "4:2:0", 
 
 
 def write_jpeg(path: str, img: np.ndarray, quality: int = 95, subsampling: str = "4:2:0",
-               restart_interval: int = 0) -> None:
-    """Write an array as a baseline JPEG file (see `encode_jpeg`)."""
-    data = encode_jpeg(img, quality, subsampling, restart_interval)
+               restart_interval: int = 0, progressive: bool = False) -> None:
+    """Write an array as a JPEG file (see `encode_jpeg`)."""
+    data = encode_jpeg(img, quality, subsampling, restart_interval, progressive)
     with open(path, "wb") as f:
         f.write(data)

@@ -10,6 +10,7 @@ import shutil
 import struct
 import sys
 import zlib
+from concurrent.futures import ThreadPoolExecutor
 
 import imageio.v2 as imageio
 import numpy as np
@@ -178,20 +179,17 @@ def test_png_decoder_equals_imageio_on_pil_files(tmp_path, kind):
     np.testing.assert_array_equal(got, want)
 
 
-def filtered_png(img: np.ndarray, filters) -> bytes:
-    """An 8- or 16-bit PNG whose row y uses filter type filters[y % len]."""
-    h, w = img.shape[:2]
-    c = 1 if img.ndim == 2 else img.shape[2]
-    depth = 8 * img.dtype.itemsize
-    raw = (img.astype(">u2") if depth == 16 else img).reshape(h, -1).view(np.uint8).astype(np.int64)
-    bpp = c * depth // 8
+def filter_rows(raw: np.ndarray, bpp: int, filters) -> bytes:
+    """PNG's filtered rows of the (h, stride) bytes `raw`: row y with filter
+    type filters[y % len], `bpp` bytes to the byte on the left."""
+    raw = raw.astype(np.int64)
     rows = []
-    for y in range(h):
+    for y in range(raw.shape[0]):
         f = filters[y % len(filters)]
         cur = raw[y]
         up = raw[y - 1] if y else np.zeros_like(cur)
-        left = np.concatenate([np.zeros(bpp, np.int64), cur[:-bpp]])
-        upleft = np.concatenate([np.zeros(bpp, np.int64), up[:-bpp]])
+        left = np.concatenate([np.zeros(bpp, np.int64), cur[:-bpp]])[:cur.size]
+        upleft = np.concatenate([np.zeros(bpp, np.int64), up[:-bpp]])[:cur.size]
         if f == 0:
             pred = 0
         elif f == 1:
@@ -205,13 +203,52 @@ def filtered_png(img: np.ndarray, filters) -> bytes:
             pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - upleft)
             pred = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, upleft))
         rows.append(bytes([f]) + ((cur - pred) % 256).astype(np.uint8).tobytes())
-    ctype = {1: 0, 2: 4, 3: 2, 4: 6}[c]
+    return b"".join(rows)
 
+
+def png_file(header: tuple, idat: bytes, palette: np.ndarray | None = None) -> bytes:
     def chunk(kind, data):
         return struct.pack(">I", len(data)) + kind + data + struct.pack(">I", zlib.crc32(kind + data))
 
-    return (png.SIGNATURE + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype, 0, 0, 0))
-            + chunk(b"IDAT", zlib.compress(b"".join(rows))) + chunk(b"IEND", b""))
+    plte = chunk(b"PLTE", palette.astype(np.uint8).tobytes()) if palette is not None else b""
+    return (png.SIGNATURE + chunk(b"IHDR", struct.pack(">IIBBBBB", *header)) + plte
+            + chunk(b"IDAT", zlib.compress(idat)) + chunk(b"IEND", b""))
+
+
+def sample_bytes(samples: np.ndarray, depth: int) -> np.ndarray:
+    """(h, w, c) samples as PNG row bytes (h, stride): big-endian 16-bit, or
+    sub-byte indices packed from the high bits."""
+    h = samples.shape[0]
+    if depth == 16:
+        return samples.astype(">u2").reshape(h, -1).view(np.uint8)
+    if depth < 8:
+        bits = ((samples.reshape(h, -1)[..., None] >> np.arange(depth - 1, -1, -1)) & 1).reshape(h, -1)
+        return np.packbits(bits.astype(np.uint8), axis=1)
+    return samples.reshape(h, -1).astype(np.uint8)
+
+
+def filtered_png(img: np.ndarray, filters) -> bytes:
+    """An 8- or 16-bit PNG whose row y uses filter type filters[y % len]."""
+    h, w = img.shape[:2]
+    c = 1 if img.ndim == 2 else img.shape[2]
+    depth = 8 * img.dtype.itemsize
+    raw = sample_bytes(img.reshape(h, w, c), depth)
+    ctype = {1: 0, 2: 4, 3: 2, 4: 6}[c]
+    return png_file((w, h, depth, ctype, 0, 0, 0), filter_rows(raw, c * depth // 8, filters))
+
+
+def adam7_png(samples: np.ndarray, depth: int, ctype: int, palette: np.ndarray | None = None,
+              filters=(0, 1, 2, 3, 4)) -> bytes:
+    """An interlaced PNG of (h, w, c) samples (palette indices for colour
+    type 3): Adam7's seven passes, each filtered on its own, rows cycling
+    through `filters`; an empty pass has no bytes."""
+    h, w, c = samples.shape
+    idat = b""
+    for x0, y0, dx, dy in png.ADAM7:
+        sub = samples[y0::dy, x0::dx]
+        if sub.size:
+            idat += filter_rows(sample_bytes(sub, depth), max(c * depth // 8, 1), filters)
+    return png_file((w, h, depth, ctype, 0, 0, 1), idat, palette)
 
 
 @pytest.mark.parametrize("depth", [8, 16])
@@ -240,13 +277,112 @@ def test_png_decoder_equals_imageio_on_every_filter_type(tmp_path, depth, channe
 
 
 def test_png_decoder_rejects_interlaced_files(tmp_path):
-    data = bytearray(png.encode_png(np.zeros((4, 4, 3), np.uint8)))
+    """An interlaced file decodes by its seven passes (equal to its array and
+    to imageio's decode); a file whose IHDR says Adam7 over plain rows
+    raises naming the file (its passes' bytes fall out of step: here a data
+    byte where a pass row's filter type belongs)."""
+    img = np.random.RandomState(2).randint(0, 256, (4, 4, 3)).astype(np.uint8)
+    path = tmp_path / "adam7.png"
+    path.write_bytes(adam7_png(img, 8, 2))
+    np.testing.assert_array_equal(png.read_png(str(path)), img)
+    np.testing.assert_array_equal(imageio.imread(str(path)), img)
+    data = bytearray(png.encode_png(img))
     data[8 + 8 + 12] = 1  # IHDR's interlace byte
     data[8 + 8 + 13:8 + 8 + 17] = struct.pack(">I", zlib.crc32(bytes(data[12:8 + 8 + 13])))
-    path = tmp_path / "adam7.png"
     path.write_bytes(bytes(data))
-    with pytest.raises(ValueError, match="Adam7"):
+    with pytest.raises(ValueError, match="adam7.png: PNG row 0: unknown filter type"):
         png.read_png(str(path))
+
+
+@pytest.mark.parametrize("bpp", range(1, 9))
+@pytest.mark.parametrize("ftype", range(5))
+def test_png_unfilter_in_c_equals_the_python_loop(ftype, bpp):
+    """The C row filters against `_unfilter`, the plain version, on random
+    bytes: every row of filter type `ftype` but the first two (None, then
+    the type again over a row above of zeros and of data)."""
+    rng = np.random.RandomState(10 * ftype + bpp)
+    h, stride = 6, 7 * bpp + (3 if bpp == 1 else 0)
+    raw = rng.randint(0, 256, (h, 1 + stride)).astype(np.uint8)
+    raw[:, 0] = ftype
+    raw[1, 0] = 0
+    for rows in (raw, raw[1:]):
+        want = png._unfilter(rows, len(rows), stride, bpp)
+        np.testing.assert_array_equal(png.unfilter(rows, len(rows), stride, bpp), want)
+    raw[3, 0] = 5
+    with pytest.raises(ValueError, match="row 3: unknown filter type 5"):
+        png.unfilter(raw, h, stride, bpp)
+
+
+ADAM7_CASES = {f"ctype{t}_depth{d}": (t, d) for t, depths in ((0, (8, 16)), (2, (8, 16)), (3, (1, 2, 4, 8)),
+                                                                (4, (8, 16)), (6, (8, 16))) for d in depths}
+
+
+@pytest.mark.parametrize("case", list(ADAM7_CASES))
+def test_adam7_png_equals_imageio(tmp_path, case):
+    """Interlaced files of every colour type and bit depth the reader takes,
+    at a size where every pass is partial and one of 2x3 where some are
+    empty, decode to their samples and to imageio's decode (which keeps 16
+    bits only for grey, and reads grey + alpha at 16 bits as RGBA)."""
+    ctype, depth = ADAM7_CASES[case]
+    rng = np.random.RandomState(depth + 16 * ctype)
+    c = png._CHANNELS[ctype]
+    top = (1 << depth) - 1 if ctype == 3 else np.iinfo(np.uint16 if depth == 16 else np.uint8).max
+    palette = rng.randint(0, 256, (top + 1, 3)) if ctype == 3 else None
+    for h, w in ((13, 11), (2, 3)):
+        samples = rng.randint(0, top + 1, (h, w, c)).astype(np.uint16 if depth == 16 else np.uint8)
+        path = str(tmp_path / f"{case}_{h}x{w}.png")
+        with open(path, "wb") as f:
+            f.write(adam7_png(samples, depth, ctype, palette))
+        want = palette[samples[..., 0]].astype(np.uint8) if ctype == 3 else samples[..., 0] if c == 1 else samples
+        got = png.read_png(path)
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
+        ref = imageio.imread(path)
+        if depth == 16 and c > 1:
+            want = (want >> 8).astype(np.uint8)
+            if c == 2:
+                want = np.concatenate([want[..., :1].repeat(3, -1), want[..., 1:]], -1)
+        np.testing.assert_array_equal(ref, want)
+
+
+def test_png_paeth_files_on_threads_equal_serial(tmp_path):
+    """Four files of Paeth and Average rows decoded on 4 threads (the C
+    filters and zlib release the interpreter lock; nothing is shared) equal
+    their serial decode and their arrays."""
+    rng = np.random.RandomState(11)
+    paths, images = [], []
+    for i in range(4):
+        img = rng.randint(0, 256, (60 + i, 80, 3)).astype(np.uint8)
+        path = str(tmp_path / f"{i}.png")
+        with open(path, "wb") as f:
+            f.write(filtered_png(img, [4, 4, 3, 4]))
+        paths.append(path)
+        images.append(img)
+    serial = [png.read_png(p) for p in paths]
+    with ThreadPoolExecutor(4) as pool:
+        threaded = list(pool.map(png.read_png, paths))
+    for a, b, img in zip(serial, threaded, images):
+        np.testing.assert_array_equal(a, img)
+        np.testing.assert_array_equal(b, img)
+
+
+def test_png_reader_raises_when_its_library_cannot_be_built(tmp_path, monkeypatch):
+    """No quiet fallback to the Python loop: without gcc a read raises."""
+    from dogs_tpu_torch.data import native
+
+    path = str(tmp_path / "a.png")
+    png.write_png(path, np.zeros((3, 4), np.uint8))
+
+    def no_gcc(source):
+        raise FileNotFoundError("gcc")
+
+    monkeypatch.setattr(native, "build", no_gcc)
+    png.load.cache_clear()
+    try:
+        with pytest.raises(RuntimeError, match=r"png_codec.c\) could not be built"):
+            png.read_png(path)
+    finally:
+        png.load.cache_clear()
 
 
 @pytest.mark.parametrize("kind", ["rgb", "grey", "rgba", "grey16", "jpeg"])
@@ -268,18 +404,20 @@ def test_load_image_matches_dogs_tpu(tmp_path, kind, monkeypatch):
 
 
 def test_jpeg_without_pil_decodes_and_progressive_raises(tmp_path, monkeypatch):
-    """With PIL hidden a baseline JPEG loads (the port's decoder, equal to
-    PIL's decode here), and a progressive one, which that decoder does not
-    implement, raises naming the file and the process."""
+    """With PIL hidden a baseline and a progressive JPEG load (the port's
+    decoder, equal to PIL's decode here), and a CMYK one, which that decoder
+    does not implement, raises naming the file and the process."""
     arr = np.random.RandomState(3).randint(0, 256, (24, 40, 3)).astype(np.uint8)
-    photo, prog = str(tmp_path / "photo.jpg"), str(tmp_path / "prog.jpg")
+    photo, prog, cmyk = str(tmp_path / "photo.jpg"), str(tmp_path / "prog.jpg"), str(tmp_path / "cmyk.jpg")
     Image.fromarray(arr).save(photo, quality=90)
     Image.fromarray(arr).save(prog, quality=90, progressive=True)
-    want = np.asarray(Image.open(photo)).astype(np.float32) / 255.0
+    Image.fromarray(arr).convert("CMYK").save(cmyk, quality=90)
+    want = {p: np.asarray(Image.open(p)).astype(np.float32) / 255.0 for p in (photo, prog)}
     monkeypatch.setitem(sys.modules, "PIL", None)
-    np.testing.assert_array_equal(tdataset.load_image(photo), want)
-    with pytest.raises(RuntimeError, match="prog.jpg.*progressive.*PIL"):
-        tdataset.load_image(prog)
+    for p in (photo, prog):
+        np.testing.assert_array_equal(tdataset.load_image(p), want[p])
+    with pytest.raises(RuntimeError, match="cmyk.jpg.*CMYK.*PIL"):
+        tdataset.load_image(cmyk)
 
 
 # ---- resizes and caches ----------------------------------------------------------

@@ -4,8 +4,9 @@ GIF writer (utils/gif.py) against imageio. Images are seeded numpy arrays
 (smooth ramps plus noise at odd sizes); PIL writes the JPEG files the
 decoder reads.
 
-The decoder's bar is one 8-bit level of `np.asarray(Image.open(f))`; each
-case prints the share of samples that are exactly equal (run with -s).
+The decoder's bar is one 8-bit level of `np.asarray(Image.open(f))` for a
+baseline file and none (bit for bit) for a progressive one; each case
+prints the share of samples that are exactly equal (run with -s).
 """
 
 import io
@@ -48,11 +49,11 @@ def psnr(a: np.ndarray, b: np.ndarray) -> float:
     return float(10 * np.log10(255.0**2 / np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2)))
 
 
-def assert_within_one_level(got: np.ndarray, want: np.ndarray, label: str) -> None:
+def assert_within_one_level(got: np.ndarray, want: np.ndarray, label: str, levels: int = 1) -> None:
     assert got.dtype == np.uint8 and got.shape == want.shape, (got.dtype, got.shape, want.shape)
     diff = np.abs(got.astype(np.int16) - want.astype(np.int16))
     print(f"{label}: {float((diff == 0).mean()):.6f} of samples exactly equal, max |d| {int(diff.max())}")
-    assert int(diff.max()) <= 1, label
+    assert int(diff.max()) <= levels, label
 
 
 # ---- the decoder against PIL ------------------------------------------------------
@@ -69,6 +70,17 @@ DECODE_CASES = {
     **{f"{h}x{w}_restart_rows": ((h, w), dict(quality=90, subsampling=1, restart_marker_rows=1)) for h, w in SIZES},
     "1x1": ((1, 1), dict(quality=90, subsampling=2)),
     "3x2_sub1": ((3, 2), dict(quality=90, subsampling=1)),
+    # progressive (libjpeg's simple progression: spectral selection, successive
+    # approximation, end-of-band runs): bit for bit
+    **{f"{h}x{w}_progressive_q{q}_sub{s}": ((h, w), dict(quality=q, subsampling=s, progressive=True))
+       for h, w in SIZES for q in (75, 95) for s in (0, 1, 2)},
+    **{f"{h}x{w}_progressive_grey": ((h, w), dict(quality=90, grey=True, progressive=True)) for h, w in SIZES},
+    "37x53_progressive_restart_blocks": ((37, 53), dict(quality=90, subsampling=2, progressive=True,
+                                                        restart_marker_blocks=3)),
+    "65x33_progressive_restart_rows": ((65, 33), dict(quality=90, subsampling=1, progressive=True,
+                                                      restart_marker_rows=1)),
+    "1x1_progressive": ((1, 1), dict(quality=90, subsampling=2, progressive=True)),
+    "240x320_progressive_q50_sub2": ((240, 320), dict(quality=50, subsampling=2, progressive=True)),
 }
 
 
@@ -78,7 +90,7 @@ def test_decoder_within_one_level_of_pil(case):
     kw = dict(kw)
     img = source_image(h, w, seed=h * w + kw["quality"], grey=kw.pop("grey", False))
     data = pil_jpeg(img, **kw)
-    assert_within_one_level(jpeg.decode_jpeg(data, case), pil_decode(data), case)
+    assert_within_one_level(jpeg.decode_jpeg(data, case), pil_decode(data), case, 0 if kw.get("progressive") else 1)
 
 
 @pytest.mark.parametrize("size", SIZES)
@@ -104,8 +116,19 @@ def truncated(img, keep=0.5):
     return data[:int(len(data) * keep)]
 
 
+def unrefined(img):
+    """A progressive file cut after its sixth scan and closed with EOI: the
+    last bit of every AC coefficient stays unsent, so libjpeg would smooth
+    its blocks."""
+    data = progressive(img)
+    sos = [i for i in range(len(data) - 1) if data[i:i + 2] == b"\xff\xda"]
+    dht = data.find(b"\xff\xc4", sos[5], sos[6])  # the next scan's tables, where it has any
+    return data[:dht if dht > 0 else sos[6]] + b"\xff\xd9"
+
+
 REJECTIONS = {
-    "progressive": (progressive, jpeg.UnsupportedJpeg, "progressive"),
+    "truncated_progressive": (lambda img: progressive(img)[:len(progressive(img)) // 2], ValueError, "truncated"),
+    "unrefined_progressive": (unrefined, jpeg.UnsupportedJpeg, "unsent.*smooths"),
     "cmyk": (cmyk, jpeg.UnsupportedJpeg, "CMYK"),
     "truncated_half": (truncated, ValueError, "truncated"),
     "truncated_in_header": (lambda img: pil_jpeg(img, quality=90)[:200], ValueError, "truncated"),
@@ -167,6 +190,38 @@ def test_encoder_file_reads_in_pil_and_matches_pil_quality(tmp_path, case):
     assert abs(psnr(mine, img) - psnr(pil_decode(ref), img)) <= 0.5
 
 
+PROGRESSIVE_CASES = {
+    **{f"{name}_q{q}": ((53, 91), name, q, 0) for name in ("4:4:4", "4:2:2", "4:2:0", "4:4:0") for q in (75, 95)},
+    "grey_q90": ((53, 91), "grey", 90, 0),
+    "4:2:2_restart_rows": ((65, 91), "4:2:2", 90, 6),
+    "4:2:0_restart_3": ((65, 91), "4:2:0", 85, 3),
+    "grey_restart_5": ((37, 29), "grey", 80, 5),
+    "1x1": ((1, 1), "4:2:0", 90, 0),
+}
+
+
+@pytest.mark.parametrize("case", list(PROGRESSIVE_CASES))
+def test_progressive_encoder_decodes_to_its_baseline_twin(case):
+    """encode_jpeg(progressive=True) writes libjpeg's simple progression (10
+    scans for RGB, 6 for grey, a DHT before every scan that codes with a
+    table) over the baseline file's quantized coefficients: PIL and the
+    port's decoder each decode the two files to the same pixels, and PIL
+    reads the file as progressive."""
+    (h, w), name, quality, restart = PROGRESSIVE_CASES[case]
+    grey = name == "grey"
+    img = source_image(h, w, seed=quality + restart, grey=grey)
+    sub = "4:2:0" if grey else name
+    base = jpeg.encode_jpeg(img, quality, sub, restart)
+    prog = jpeg.encode_jpeg(img, quality, sub, restart, progressive=True)
+    assert prog.count(b"\xff\xc2") == 1 and b"\xff\xc0" not in prog
+    assert prog.count(b"\xff\xda") == (6 if grey else 10)
+    with Image.open(io.BytesIO(prog)) as im:
+        assert im.info.get("progressive") == 1 and im.mode == ("L" if grey else "RGB")
+    np.testing.assert_array_equal(pil_decode(prog), pil_decode(base))
+    np.testing.assert_array_equal(jpeg.decode_jpeg(prog), jpeg.decode_jpeg(base))
+    assert_within_one_level(jpeg.decode_jpeg(prog), pil_decode(prog), case, 0)
+
+
 def test_encoder_rejects_bad_input():
     with pytest.raises(ValueError, match="uint8"):
         jpeg.encode_jpeg(np.zeros((4, 4, 3), np.float32))
@@ -177,8 +232,7 @@ def test_encoder_rejects_bad_input():
 # ---- the committed fixture ---------------------------------------------------------------
 
 # name -> PIL's save arguments; each file is PIL's JPEG of one source image,
-# and <name>.png is PIL's decode of it, written by the port's PNG writer. The
-# progressive file has no PNG: the port's decoder must reject it.
+# and <name>.png is PIL's decode of it, written by the port's PNG writer.
 FIXTURE_CASES = {
     "sub420": dict(quality=90, subsampling=2),
     "sub422_restart": dict(quality=85, subsampling=1, restart_marker_blocks=2),
@@ -195,15 +249,15 @@ def write_fixture(out: Path) -> None:
     for i, (name, kw) in enumerate(FIXTURE_CASES.items()):
         data = pil_jpeg(source_image(*FIXTURE_SIZE, seed=100 + i, grey=name == "grey"), **kw)
         (out / f"{name}.jpg").write_bytes(data)
-        if name != "progressive":
-            png.write_png(str(out / f"{name}.png"), pil_decode(data))
+        png.write_png(str(out / f"{name}.png"), pil_decode(data))
 
 
 def test_fixture_matches_pil_and_the_decoder(tmp_path):
     """The committed files are what PIL writes and decodes here (so the
     fixture cannot go stale), under 50 KB in all, and the port's decoder
-    reads each within one level of its PNG (the card machine, which has no
-    PIL, checks the same in chip_smoke.py)."""
+    reads each within one level of its PNG, the progressive file bit for bit
+    (the card machine, which has no PIL, checks the same in
+    chip_smoke.py)."""
     write_fixture(tmp_path)
     names = sorted(os.listdir(FIXTURE))
     assert names == sorted(os.listdir(tmp_path))
@@ -215,12 +269,8 @@ def test_fixture_matches_pil_and_the_decoder(tmp_path):
         else:
             assert committed == (tmp_path / name).read_bytes(), name
     for name in FIXTURE_CASES:
-        path = str(FIXTURE / f"{name}.jpg")
-        if name == "progressive":
-            with pytest.raises(jpeg.UnsupportedJpeg, match="progressive"):
-                jpeg.read_jpeg(path)
-        else:
-            assert_within_one_level(jpeg.read_jpeg(path), png.read_png(str(FIXTURE / f"{name}.png")), name)
+        got = jpeg.read_jpeg(str(FIXTURE / f"{name}.jpg"))
+        assert_within_one_level(got, png.read_png(str(FIXTURE / f"{name}.png")), name, 0 if name == "progressive" else 1)
 
 
 # ---- the scene writer's JPEG format ------------------------------------------------------------
@@ -258,6 +308,32 @@ def test_colmap_scene_writes_jpeg_images_the_loader_reads(tmp_path, monkeypatch)
     assert [r.load().shape for r in scene.train_cameras] == [(30, 40, 3)] * 2
     assert sorted(os.listdir(tmp_path / "scene")) == ["images", "images_3_torch", "images_3_torch_undist_torch",
                                                       "sparse"]
+
+
+def test_colmap_scene_writes_progressive_jpegs_equal_to_its_baseline_scene(tmp_path, monkeypatch):
+    """fmt="jpeg-progressive" writes the same views with the same settings as
+    progressive files: each decodes, in PIL and in the port's decoder, to the
+    pixels of the baseline scene's file, and load_scene reads them with PIL
+    hidden."""
+    from dogs_tpu_torch.data import dataset, synthetic
+    from dogs_tpu_torch.tools import colmap_scene
+
+    monkeypatch.setattr(colmap_scene, "JPEG_420_IMAGES", 1)
+    cams = colmap_scene.make_cameras(3, 40, 30, 35.0, device="cpu")
+    params = synthetic.bench_scene(300, device="cpu")
+    for fmt in ("jpeg", "jpeg-progressive"):
+        colmap_scene.write_scene(str(tmp_path / fmt), params, cams, fmt=fmt, upsample=2)
+    for i in range(3):
+        name = f"frame_{i:03d}.JPG"
+        base = (tmp_path / "jpeg" / "images" / name).read_bytes()
+        prog = (tmp_path / "jpeg-progressive" / "images" / name).read_bytes()
+        assert b"\xff\xc2" in prog and (b"\xff\xdd" in prog) == (i >= 1)
+        np.testing.assert_array_equal(pil_decode(prog), pil_decode(base))
+        np.testing.assert_array_equal(jpeg.decode_jpeg(prog, name), pil_decode(base))
+    with monkeypatch.context() as m:
+        m.setitem(sys.modules, "PIL", None)
+        scene = dataset.load_scene(str(tmp_path / "jpeg-progressive"), factor=2, val_interval=2, normalize=False)
+    assert [r.load().shape for r in scene.train_cameras] == [(30, 40, 3)]
 
 
 # ---- the GIF writer -----------------------------------------------------------------------
