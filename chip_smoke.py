@@ -37,7 +37,8 @@ through the same three kernels) and the bench's modes, in phases:
               |g|, none past 0.05
   6. train    30 full-width make_train_step steps from a perturbed bench
               model toward plain-path renders of the unperturbed one (loss
-              must fall); ms per step, peak memory and a per-stage breakdown;
+              must fall); ms per step, peak memory and the device time of
+              each dogs. span of 8 profiled steps (span_stages);
               each kernel timed alone against its plain version (and the
               PyTorch gather ent_n[sorted_idx] the fused blends replace, and
               the K->N index prep), the segment sum bit for bit against its
@@ -143,7 +144,7 @@ through the same three kernels) and the bench's modes, in phases:
               falls at each factor; ms/step per factor, peak memory; the GT
               cache holds all three factors) with trainer.profile over steps
               18-21 (one Chrome trace naming each kernel 4 times, spans
-              train_step_18..21); at the inputs of steps 1, 20 and 40,
+              dogs.trainer.step#18..21); at the inputs of steps 1, 20 and 40,
               outside the counts and the trace, each kernel and the step's
               gradients against plain; a checkpoint after step 30 resumed in
               a fresh trainer to step 45 bit for bit; then 6g's blocks
@@ -201,8 +202,9 @@ through the same three kernels) and the bench's modes, in phases:
               bit for bit), the image and every scaffold leaf's and the
               means2d offset's gradient, kernels against plain; ms/step over
               steps 151-270 without an event and bench's iters/sec there, ms
-              per event on the host, K at steps 1 and 300, peak memory, a
-              stage breakdown of 8 steps, the decode's device ms forward and
+              per event on the host, K at steps 1 and 300, peak memory, the
+              device time of each dogs. span of 8 profiled steps (span_stages),
+              the decode's device ms forward and
               backward, the growth dedup per level; a checkpoint after the
               event at 200 resumed in a fresh trainer for 10 steps, bit for
               bit; then scaffold_gs/synthetic_smoke.yaml through the train CLI
@@ -365,6 +367,49 @@ def cuda_ms(fn, iters: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def span_stages(run, n: int) -> tuple[dict, float]:
+    """Device time by `dogs.` span (utils/trace.py) over `n` calls of
+    `run(i)` under torch.profiler: (span name -> SpanStats, the summed
+    device time of every operation in the profiled segment, seconds). The
+    profiler adds host time, so read device times and their shares."""
+    from dogs_tpu_torch.utils import trace
+
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for i in range(n):
+            run(i)
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    device_s = sum(float(e.get("dur", 0.0)) for e in events
+                   if e.get("ph") == "X" and e.get("cat") in trace.DEVICE_CATS) * 1e-6
+    return trace.program_spans(events), device_s
+
+
+def stage_line(stats: dict, device_s: float, n: int, names: list[str]) -> str:
+    """Each span's device ms a step, its self ms (less its child spans) and
+    its share of `dogs.step`'s device time."""
+    step = stats["dogs.step"].device_s
+    parts = []
+    for name in names:
+        st = stats.get(name)
+        if st is not None:
+            parts.append(f"{name} {1e3 * st.device_s / n:.3f} ms (self {1e3 * st.device_self_s / n:.3f}, "
+                         f"{100 * st.device_s / step:.1f}%)")
+    return (", ".join(parts) + f"; dogs.step {1e3 * step / n:.3f} ms a step, {100 * step / device_s:.2f}% of the "
+            f"segment's device time, {stats['dogs.step'].launches / n:.0f} launches and "
+            f"{sum(st.count for k, st in stats.items() if k.startswith('dogs.sync.')) / n:.0f} host syncs a step")
+
+
+STEP_SPANS = ["dogs.step.render", "dogs.raster.project", "dogs.raster.bin", "dogs.raster.entries",
+              "dogs.raster.blend_fwd", "dogs.step.loss", "dogs.step.backward", "dogs.raster.blend_bwd",
+              "dogs.raster.reduce", "dogs.step.adam", "dogs.step.stats"]
 
 
 def native_parser_times(path: str) -> tuple[float, float, int]:
@@ -752,53 +797,12 @@ def scaffold_phase(h) -> None:
     its = len(window) / (sum(ms for _, ms in window) / 1e3)
     k_first, k_last = step_log[0][2]["bin_valid"], step_log[-1][2]["bin_valid"]
 
-    # Where a step's time goes: CUDA events at the stage boundaries of 8 more
-    # steps from the final state (outside the counts; the events add host
-    # time, so read the shares). Stages: the prefilter, the decode forward,
-    # the render, the loss forward, the whole backward (the loss's, K2, the
-    # K->N reduce, K3, the projection's and the decode's VJPs), dense Adam
-    # over every leaf, then the statistics and metrics.
+    # Where a step's device time goes: 8 more steps from the final state
+    # under torch.profiler, summed by the step's spans (outside the counts).
     saved = {fn: fn.launches for fn in counted}
-    marks: list[tuple[str, torch.cuda.Event]] = []
-
-    def mark(label):
-        e = torch.cuda.Event(enable_timing=True)
-        e.record()
-        marks.append((label, e))
-
-    def marked(fn, before, after):
-        def run(*a, **kw):
-            mark(before(marks[-1][0] if marks else None) if callable(before) else before)
-            out = fn(*a, **kw)
-            mark(after)
-            return out
-        return run
-
-    wrapped = {"anchor_frustum_mask": ("start", "prefilter"), "generate_neural_gaussians": ("-", "decode fwd"),
-               "render_tiled": ("-", "render fwd (project, bin, K1)"), "ssim": ("-", "loss fwd"),
-               "adam_step": (lambda last: "backward" if last == "loss fwd" else "Adam", "Adam")}
-    originals_6h = {name: getattr(sc, name) for name in wrapped}
-    for name, (before, after) in wrapped.items():
-        setattr(sc, name, marked(originals_6h[name], before, after))
-    stage_ms: dict[str, list[float]] = {}
-    try:
-        for i in range(len(cams)):
-            marks.clear()
-            trainer._step_fn(trainer.state, cams[i], gts[i])
-            mark("stats + metrics")
-            torch.cuda.synchronize()
-            per_step: dict[str, float] = {}
-            for (_, e0), (label, e1) in zip(marks, marks[1:]):
-                if label != "-":
-                    per_step[label] = per_step.get(label, 0.0) + e0.elapsed_time(e1)
-            for label, ms in per_step.items():
-                stage_ms.setdefault(label, []).append(ms)
-    finally:
-        for name, fn in originals_6h.items():
-            setattr(sc, name, fn)
+    stage_stats = span_stages(lambda i: trainer._step_fn(trainer.state, cams[i], gts[i]), len(cams))
     for fn, c in saved.items():
         fn.launches = c
-    stage_total = sum(np.median(v) for v in stage_ms.values())
 
     # The decode alone (prefilter, the three MLPs and the assembly) at the
     # final state on camera 0, device ms from CUDA events: forward, and
@@ -926,9 +930,8 @@ def scaffold_phase(h) -> None:
           f"{grown_losses[-1]:.5f}, every alive leaf finite; the compacted state's checkpoint resumed in a fresh trainer "
           f"of capacity {cap0:,} and taken through the same event and steps: equal bit for bit "
           f"({n_grown_leaves} leaves)")
-    print(f"[scaffold] ({smi}) stages of a step from the final state (CUDA events, median of 8 steps): "
-          + ", ".join(f"{label} {np.median(v):.3f} ms ({100 * np.median(v) / stage_total:.1f}%)"
-                      for label, v in stage_ms.items()) + f"; sum {stage_total:.3f} ms")
+    print(f"[scaffold] ({smi}) stages of a step from the final state (device, {len(cams)} profiled steps): "
+          + stage_line(*stage_stats, len(cams), ["dogs.scaffold.prefilter", "dogs.scaffold.decode"] + STEP_SPANS))
     print(f"[scaffold] ({smi}) decode (prefilter, three MLPs, assembly) at {n_decoded:,} anchors on camera 0: "
           f"forward {fwd_ms:.3f} ms, forward + backward {fwd_bwd_ms:.3f} ms (CUDA events, 20 runs)")
     print(f"[scaffold] ({smi}) checkpoint after the event at {SCAFFOLD_EVENTS[0]} resumed in a fresh trainer for "
@@ -1791,54 +1794,12 @@ def main() -> int:
     print(f"[train] ms/step median {np.median(warm_ms):.2f} min {min(warm_ms):.2f} "
           f"(first round median {np.median(step_ms[:len(cams)]):.2f}); peak memory {train_peak_mb:.0f} MiB")
 
-    # Per-stage breakdown: CUDA events at the stage boundaries of 8 more steps
-    # (after the counted run). Device time between consecutive events.
-    marks: list[tuple[str, torch.cuda.Event]] = []
-
-    def mark(label):
-        e = torch.cuda.Event(enable_timing=True)
-        e.record()
-        marks.append((label, e))
-
-    def wrapped(fn, before, after):
-        def run(*a, **kw):
-            mark(before)
-            out = fn(*a, **kw)
-            mark(after)
-            return out
-        if hasattr(fn, "launches"):  # the kernel wrapper counts through its module name
-            run.launches = fn.launches
-        return run
-
-    originals = (trainer_mod.render_tiled, blend.blend_backward, reduce.gaussian_runs,
-                 reduce.sorted_segment_sum, trainer_mod.sparse_adam_step)
-    trainer_mod.render_tiled = wrapped(originals[0], "start", "render")
-    blend.blend_backward = wrapped(originals[1], "loss fwd+bwd", "K2")
-    reduce.gaussian_runs = wrapped(originals[2], "-", "K->N prep")
-    reduce.sorted_segment_sum = wrapped(originals[3], "-", "K3")
-    trainer_mod.sparse_adam_step = wrapped(originals[4], "projection VJP", "sparse Adam")
-    stages: dict[str, list[float]] = {}
-    try:
-        for i in range(len(cams)):
-            marks.clear()
-            ts, m = step(ts, cams[i], targets[i])
-            mark("stats+metrics")
-            torch.cuda.synchronize()
-            for (_, e0), (label, e1) in zip(marks, marks[1:]):
-                if label != "-":
-                    stages.setdefault(label, []).append(e0.elapsed_time(e1))
-    finally:
-        (trainer_mod.render_tiled, blend.blend_backward, reduce.gaussian_runs,
-         reduce.sorted_segment_sum, trainer_mod.sparse_adam_step) = originals
-    names = {"render": "forward render (project, bin, K1)", "loss fwd+bwd": "loss fwd + SSIM/L1 bwd",
-             "K2": "blend backward K2", "K->N prep": "K->N index prep",
-             "K3": "segment sum K3", "projection VJP": "projection + SH VJP",
-             "sparse Adam": "sparse Adam", "stats+metrics": "densify stats + metrics"}
-    total = sum(np.median(v) for v in stages.values())
-    for label, v in stages.items():
-        print(f"[train] stage {names[label]:34s} median {np.median(v):8.3f} ms "
-              f"({100 * np.median(v) / total:4.1f}%)")
-    print(f"[train] stage sum {total:.3f} ms")
+    # Where a step's device time goes: 8 more steps (after the counted run)
+    # under torch.profiler, summed by the step's spans (the step updates `ts`
+    # in place).
+    stats, device_s = span_stages(lambda i: step(ts, cams[i], targets[i]), len(cams))
+    print(f"[train] stages (device, {len(cams)} profiled steps): "
+          + stage_line(stats, device_s, len(cams), STEP_SPANS))
 
     # Each kernel alone against its plain version on bench camera 0: the
     # forward at the serving shapes (as PR 1 timed it), then all three at
@@ -2871,7 +2832,7 @@ def main() -> int:
               f"c2f: frames {frame_of}, expected a partial tile row at factor 4")
 
         # The profiler's trace: one Chrome trace with the three kernels once a
-        # traced step and a train_step_<s> span for each of them.
+        # traced step and a dogs.trainer.step#<s> span for each of them.
         traces = [f for f in os.listdir(os.path.join(tmp, "profile")) if f.endswith(".json")]
         check(len(traces) == 1, f"c2f: profiler traces {traces}")
         with open(os.path.join(tmp, "profile", traces[0])) as f:
@@ -2879,8 +2840,8 @@ def main() -> int:
         traced_steps = list(range(C2F_PROFILE[0], C2F_PROFILE[1] + 1))
         trace_kernels = {name: sum(1 for e in events if e.get("cat") == "kernel" and f"{name}_kernel" in e.get("name", ""))
                          for name in ("blend_forward", "blend_backward", "segment_sum")}
-        spans = sorted({int(e["name"][len("train_step_"):]) for e in events
-                        if e.get("cat") == "user_annotation" and e.get("name", "").startswith("train_step_")})
+        spans = sorted({int(e["name"][len("dogs.trainer.step#"):]) for e in events
+                        if e.get("cat") == "user_annotation" and e.get("name", "").startswith("dogs.trainer.step#")})
         trace_mb = os.path.getsize(os.path.join(tmp, "profile", traces[0])) / 2**20
         check(all(c == len(traced_steps) for c in trace_kernels.values()) and spans == traced_steps,
               f"c2f: trace kernels {trace_kernels}, spans {spans}, expected {len(traced_steps)} of each")
@@ -3034,7 +2995,7 @@ def main() -> int:
           + f"; resize_image of one 1152x864 image on the host: {resize_ms[4]:.2f} ms to 288x216, "
           f"{resize_ms[2]:.2f} ms to 576x432; peak memory {c2f_peak_mb:.0f} MiB; GT cache factors {cache_res}")
     print(f"[c2f] ({smi}) profiler over steps {C2F_PROFILE[0]}-{C2F_PROFILE[1]}: {traces[0]} ({trace_mb:.1f} MiB), "
-          f"kernels {trace_kernels}, spans train_step_{spans}; checkpoint at {C2F_CKPT} resumed in a fresh trainer "
+          f"kernels {trace_kernels}, spans dogs.trainer.step#{spans}; checkpoint at {C2F_CKPT} resumed in a fresh trainer "
           f"to {C2F_RESUME_TO} bit for bit ({n_resume_leaves} leaves)")
     print(f"[c2f admm] ({smi}) train_scene {c2f_admm_s:.1f} s for {C2F_ADMM_STEPS} master steps of 4 block steps "
           f"with coarse-to-fine (c2f_interval {C2F_ADMM_STEPS // 3}), the fusion after them: ms per master step median "

@@ -26,7 +26,7 @@ from dogs_tpu_torch.eval.metrics import color_correct, lpips, psnr, ssim
 from dogs_tpu_torch.fields.io import save_colmap_ply, save_gaussian_ply, save_splat
 from dogs_tpu_torch.fields.model import GaussianModelState
 from dogs_tpu_torch.raster.tiled import RasterConfig, render_tiled
-from dogs_tpu_torch.utils import gif
+from dogs_tpu_torch.utils import gif, trace
 from dogs_tpu_torch.utils.png import write_png
 
 logger = logging.getLogger(__name__)
@@ -67,15 +67,18 @@ class GaussianSplatEvaluator:
     def render(self, camera: Camera) -> torch.Tensor:
         """(H, W, 3) image clipped to [0, 1], on the model's device. Records
         no autograd graph: the parameters are leaves that require grad."""
-        out = render_tiled(
-            self.model.params,
-            camera,
-            self.raster_cfg,
-            background=torch.tensor(self.cfg.background, dtype=torch.float32, device=self.device),
-            alive=self.model.alive,
-            active_sh_degree=self.cfg.active_sh_degree,
-        )
-        return torch.clamp(out.image, 0.0, 1.0)
+        with trace.span("dogs.eval.render"):
+            with trace.readback("eval_background"):
+                background = torch.tensor(self.cfg.background, dtype=torch.float32, device=self.device)
+            out = render_tiled(
+                self.model.params,
+                camera,
+                self.raster_cfg,
+                background=background,
+                alive=self.model.alive,
+                active_sh_degree=self.cfg.active_sh_degree,
+            )
+            return torch.clamp(out.image, 0.0, 1.0)
 
     def eval(
         self,

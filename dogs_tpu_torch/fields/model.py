@@ -22,6 +22,7 @@ from dogs_tpu_torch.core.gaussians import PARAM_NAMES, GaussianParams, empty_par
 from dogs_tpu_torch.core.knn import mean_knn_dist_sq
 from dogs_tpu_torch.core.sh import rgb_to_sh
 from dogs_tpu_torch.core.transforms import quat_to_rotmat
+from dogs_tpu_torch.utils import trace
 
 # Split children get log_scale - log(1.6) (scale / (0.8 * 2)). The constant is
 # the float32 log of float32 1.6, as jnp.log(1.6) computes it; torch.log on
@@ -101,7 +102,8 @@ def update_densify_stats(
     `means2d_offset`); the reference thresholds are calibrated for NDC-scale
     gradients, so it is scaled by (0.5 W, 0.5 H) first, as dogs_tpu does."""
     visible = radii > 0.0
-    scale = torch.tensor([0.5 * width, 0.5 * height], dtype=means2d_grad.dtype, device=means2d_grad.device)
+    with trace.readback("densify_stats_scale"):
+        scale = torch.tensor([0.5 * width, 0.5 * height], dtype=means2d_grad.dtype, device=means2d_grad.device)
     norm = torch.linalg.vector_norm(means2d_grad * scale, dim=-1)
     state.grad_accum.copy_(torch.where(visible, state.grad_accum + norm, state.grad_accum))
     state.denom.copy_(torch.where(visible, state.denom + 1.0, state.denom))

@@ -57,6 +57,7 @@ from dogs_tpu_torch.raster.ssim import ssim
 from dogs_tpu_torch.raster.tiled import RasterConfig, RenderOutput, render_tiled
 from dogs_tpu_torch.train.optim import adam_step, exponential_lr
 from dogs_tpu_torch.train.trainer import _as_image
+from dogs_tpu_torch.utils import trace
 
 logger = logging.getLogger(__name__)
 
@@ -475,24 +476,30 @@ def scaffold_loss_and_grads(
     cap, k = sp.num_anchors, sp.k_offsets
     offset2d = torch.zeros((cap * k, 2), device=sp.anchor_xyz.device, requires_grad=True)
     with exact_f32():
-        visible = anchor_frustum_mask(sp, camera)
-        gauss, colors, neural_alive, aux = generate_neural_gaussians(
-            sp, camera, alive=alive, visible_mask=visible, with_aux=True)
-        out = render_tiled(gauss, camera, raster_cfg, alive=neural_alive, active_sh_degree=0,
-                           color_override=colors, means2d_offset=offset2d)
-        img = torch.clamp(out.image, 0.0, 1.0)
-        l1 = torch.mean(torch.abs(img - gt))
-        s = ssim(img, gt)
-        # Scale regularizer over the alive neural Gaussians
-        # (scaffold_gs_trainer.py:273-276 loss_scaling).
-        vol = torch.prod(aux["scale"].reshape(-1, 3), dim=-1)
-        n_alive = torch.clamp(neural_alive.sum(dtype=torch.float32), min=1.0)
-        loss_scaling = torch.where(neural_alive, vol, torch.zeros_like(vol)).sum() / n_alive
-        loss = (1.0 - cfg.lambda_dssim) * l1 + cfg.lambda_dssim * (1.0 - s) + cfg.lambda_scale * loss_scaling
+        with trace.span("dogs.scaffold.prefilter"):
+            visible = anchor_frustum_mask(sp, camera)
+        with trace.span("dogs.scaffold.decode"):
+            gauss, colors, neural_alive, aux = generate_neural_gaussians(
+                sp, camera, alive=alive, visible_mask=visible, with_aux=True)
+        with trace.span("dogs.step.render"):
+            out = render_tiled(gauss, camera, raster_cfg, alive=neural_alive, active_sh_degree=0,
+                               color_override=colors, means2d_offset=offset2d)
+            img = torch.clamp(out.image, 0.0, 1.0)
+        with trace.span("dogs.step.loss"):
+            l1 = torch.mean(torch.abs(img - gt))
+            s = ssim(img, gt)
+            # Scale regularizer over the alive neural Gaussians
+            # (scaffold_gs_trainer.py:273-276 loss_scaling).
+            vol = torch.prod(aux["scale"].reshape(-1, 3), dim=-1)
+            vol = trace.readback_in_backward(vol, "scale_reg_backward")
+            n_alive = torch.clamp(neural_alive.sum(dtype=torch.float32), min=1.0)
+            loss_scaling = torch.where(neural_alive, vol, torch.zeros_like(vol)).sum() / n_alive
+            loss = (1.0 - cfg.lambda_dssim) * l1 + cfg.lambda_dssim * (1.0 - s) + cfg.lambda_scale * loss_scaling
         # Leaves the loss does not reach (a (0, 0) appearance embedding) get
         # zero gradients, as JAX gives them.
-        *grads, g_off = torch.autograd.grad(loss, list(sp.leaves().values()) + [offset2d], allow_unused=True,
-                                            materialize_grads=True)
+        with trace.span("dogs.step.backward"):
+            *grads, g_off = torch.autograd.grad(loss, list(sp.leaves().values()) + [offset2d], allow_unused=True,
+                                                materialize_grads=True)
     raux = dict(img=img.detach(), radii=out.radii.detach(), neural_opacity=aux["neural_opacity"].detach(),
                 visible=visible & alive, bin_valid=out.bin_valid, bin_dropped=out.bin_dropped)
     return loss.detach(), grads, g_off, raux
@@ -518,35 +525,42 @@ def make_scaffold_step(cfg: ScaffoldConfig, raster_cfg: RasterConfig) -> Callabl
                     app_embedding=cfg.app_lr)
 
     def step_fn(state: ScaffoldTrainState, camera: Camera, gt: torch.Tensor):
+        with trace.span("dogs.step"):
+            return step_body(state, camera, gt)
+
+    def step_body(state: ScaffoldTrainState, camera: Camera, gt: torch.Tensor):
         sp = state.params
         cap, k = state.capacity, sp.k_offsets
         device = sp.anchor_xyz.device
         loss, grads, g_off, aux = scaffold_loss_and_grads(sp, camera, gt, state.alive, cfg, raster_cfg)
         with torch.no_grad():
             lr = lrs(state.step)
-            for (path, p), g, m, v in zip(sp.leaves().items(), grads, state.mu.leaves().values(),
-                                          state.nu.leaves().values()):
-                new = adam_step(p, g, m, v, lr[path[1:].split("/")[0]], state.step)
-                for dst, src in zip((p, m, v), new):
-                    dst.copy_(src)
-            if cfg.stat_start_iter <= state.step < cfg.densify_end_iter:
-                # Densify statistics (scaffold_gs.py:407-434).
-                op = aux["neural_opacity"]  # (cap, K)
-                vis_anchor = aux["visible"]
-                sel = (op > 0.0) & vis_anchor[:, None]
-                upd = (aux["radii"].reshape(cap, k) > 0.0) & sel
-                # Screen-gradient norm in pixels (update_densify_stats' convention).
-                half = torch.tensor([0.5 * camera.width, 0.5 * camera.height], device=device)
-                gs = g_off.reshape(cap, k, 2) * half
-                gn = torch.sqrt((gs * gs).sum(dim=-1))
-                zero = torch.zeros((), device=device)
-                state.opacity_accum += torch.where(vis_anchor, torch.clamp(op, min=0.0).sum(dim=1), zero)
-                state.anchor_denom += vis_anchor.float()
-                state.offset_grad_accum += torch.where(upd, gn, zero)
-                state.offset_denom += upd.float()
-            mse = torch.mean((aux["img"] - gt) ** 2)
-            metrics = dict(loss=loss, psnr=-10.0 * torch.log(mse) / math.log(10.0), bin_valid=aux["bin_valid"],
-                           bin_pool_truncated=0, bin_dropped=aux["bin_dropped"])
+            with trace.span("dogs.step.adam"):
+                for (path, p), g, m, v in zip(sp.leaves().items(), grads, state.mu.leaves().values(),
+                                              state.nu.leaves().values()):
+                    new = adam_step(p, g, m, v, lr[path[1:].split("/")[0]], state.step)
+                    for dst, src in zip((p, m, v), new):
+                        dst.copy_(src)
+            with trace.span("dogs.step.stats"):
+                if cfg.stat_start_iter <= state.step < cfg.densify_end_iter:
+                    # Densify statistics (scaffold_gs.py:407-434).
+                    op = aux["neural_opacity"]  # (cap, K)
+                    vis_anchor = aux["visible"]
+                    sel = (op > 0.0) & vis_anchor[:, None]
+                    upd = (aux["radii"].reshape(cap, k) > 0.0) & sel
+                    # Screen-gradient norm in pixels (update_densify_stats' convention).
+                    with trace.readback("scaffold_stats_scale"):
+                        half = torch.tensor([0.5 * camera.width, 0.5 * camera.height], device=device)
+                    gs = g_off.reshape(cap, k, 2) * half
+                    gn = torch.sqrt((gs * gs).sum(dim=-1))
+                    zero = torch.zeros((), device=device)
+                    state.opacity_accum += torch.where(vis_anchor, torch.clamp(op, min=0.0).sum(dim=1), zero)
+                    state.anchor_denom += vis_anchor.float()
+                    state.offset_grad_accum += torch.where(upd, gn, zero)
+                    state.offset_denom += upd.float()
+                mse = torch.mean((aux["img"] - gt) ** 2)
+                metrics = dict(loss=loss, psnr=-10.0 * torch.log(mse) / math.log(10.0), bin_valid=aux["bin_valid"],
+                               bin_pool_truncated=0, bin_dropped=aux["bin_dropped"])
         state.step += 1
         return state, metrics
 
@@ -754,7 +768,8 @@ class ScaffoldGSTrainer:
         cfg = self.cfg
         if not (cfg.densify_start_iter < step <= cfg.densify_end_iter and step % cfg.densification_interval == 0):
             return
-        self.state, stats = grow_and_prune_anchors(self.state, cfg, self.rng, do_prune=cfg.prune_anchors)
+        with trace.span("dogs.scaffold.anchor_event"):
+            self.state, stats = grow_and_prune_anchors(self.state, cfg, self.rng, do_prune=cfg.prune_anchors)
         if stats["grown"] or stats["pruned"]:
             metrics["anchors_grown"] = stats["grown"]
             metrics["anchors_pruned"] = stats["pruned"]
@@ -779,17 +794,20 @@ class ScaffoldGSTrainer:
         t0 = time.time()
         metrics = {}
         for step in range(start + 1, start + n + 1):
-            metrics = self.train_iteration(step)
-            if log_every and step % log_every == 0:
-                vals = torch.stack([torch.as_tensor(v, dtype=torch.float64, device=self.device)
-                                    for v in metrics.values()]).tolist()  # one transfer
-                m = dict(zip(metrics, vals))
-                m["step"] = step
-                m["iters_per_sec"] = (step - start) / (time.time() - t0)
-                m["n_anchors"] = int(self.state.num_alive)
-                self.metrics_history.append(m)
-                logger.info("scaffold step %d loss %.4f psnr %.2f anchors %d", step, m["loss"], m["psnr"],
-                            m["n_anchors"])
+            with trace.span(f"dogs.trainer.step#{step}"):
+                metrics = self.train_iteration(step)
+                if log_every and step % log_every == 0:
+                    with trace.readback("metrics"):
+                        vals = torch.stack([torch.as_tensor(v, dtype=torch.float64, device=self.device)
+                                            for v in metrics.values()]).tolist()  # one transfer
+                        n_anchors = int(self.state.num_alive)
+                    m = dict(zip(metrics, vals))
+                    m["step"] = step
+                    m["iters_per_sec"] = (step - start) / (time.time() - t0)
+                    m["n_anchors"] = n_anchors
+                    self.metrics_history.append(m)
+                    logger.info("scaffold step %d loss %.4f psnr %.2f anchors %d", step, m["loss"], m["psnr"],
+                                m["n_anchors"])
         return metrics
 
     @torch.no_grad()

@@ -11,7 +11,9 @@ centred clamp of that rect to `max_tiles_per_gaussian`, the exact per-tile
 max-alpha cull, and the key packing. What existed there only because XLA
 needs static shapes is gone: the sentinel tail, `bin_capacity` and the
 two-tier overflow pool. So nothing is ever dropped past the rect clamp, and
-`sorted_idx` holds exactly `num_valid` entries.
+`sorted_idx` holds exactly `num_valid` entries. The host waits for the
+device three times, each a `dogs.sync.bin_*` span (utils/trace.py): for the
+expansion's size, the cull's compaction and the truncated count.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import dataclasses
 import torch
 
 from dogs_tpu_torch.raster.projection import ALPHA_MIN, ProjectedGaussians
+from dogs_tpu_torch.utils import trace
 
 
 @dataclasses.dataclass
@@ -139,7 +142,11 @@ def build_tile_bins(
 
     # Ragged candidate expansion: Gaussian g owns counts[g] consecutive slots.
     counts = torch.where(visible, bw * bh, torch.zeros_like(bw)).to(torch.int64)
-    gid = torch.repeat_interleave(torch.arange(counts.shape[0], device=device), counts)
+    # The expansion's size, read once: without it repeat_interleave reads
+    # the size and checks the counts' signs, two syncs.
+    with trace.readback("bin_expand"):
+        total = int(counts.sum())
+    gid = torch.repeat_interleave(torch.arange(counts.shape[0], device=device), counts, output_size=total)
     first = torch.cumsum(counts, 0) - counts
     j = torch.arange(gid.shape[0], device=device) - first[gid]
     bwg = torch.clamp(bw, min=1).to(torch.int64)[gid]
@@ -152,7 +159,9 @@ def build_tile_bins(
             proj.conic[gid, 0], proj.conic[gid, 1], proj.conic[gid, 2],
             proj.opacity[gid], tile_size,
         )
-        gid, tix, tiy = gid[keep], tix[keep], tiy[keep]
+        with trace.readback("bin_cull"):
+            kept = torch.nonzero(keep).squeeze(1)
+        gid, tix, tiy = gid[kept], tix[kept], tiy[kept]
 
     # Packed key: tile in the top bits, the top `depth_bits` of the positive
     # f32 depth pattern below (positive float bits order like ints).
@@ -168,13 +177,15 @@ def build_tile_bins(
     tile_starts = torch.searchsorted(
         sorted_tile, torch.arange(n_tiles + 1, dtype=torch.int32, device=device), side="left"
     ).to(torch.int32)
+    with trace.readback("bin_truncated"):
+        num_truncated = int(truncated.sum())
     return TileBins(
         sorted_idx=sorted_idx,
         sorted_tile=sorted_tile,
         tile_starts=tile_starts,
         order=order,
         num_valid=int(sorted_idx.shape[0]),
-        num_truncated=int(truncated.sum()),
+        num_truncated=num_truncated,
     )
 
 

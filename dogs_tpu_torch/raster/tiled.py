@@ -25,6 +25,7 @@ from dogs_tpu_torch.core.gaussians import GaussianParams, NeuralGaussians
 from dogs_tpu_torch.raster import blend, reduce
 from dogs_tpu_torch.raster.binning import build_tile_bins
 from dogs_tpu_torch.raster.projection import ProjectedGaussians, project_gaussians
+from dogs_tpu_torch.utils import trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,13 +119,14 @@ class _TileBlend(torch.autograd.Function):
     @staticmethod
     def forward(ctx, ent_n, background, sorted_idx, starts, order, grid, cfg):
         args = (ent_n, sorted_idx, starts, *grid)
-        if ent_n.is_cuda and cfg.use_kernel:
-            out = blend.blend_forward(*args)
-        else:
-            out = blend.blend_forward_reference(*args, tile_size=cfg.tile_size)
-        # out: (T, 5, P) rows R, G, B, A, invD, no background.
-        aa = out[:, 3]
-        img = out[:, 0:3].transpose(1, 2) + (1.0 - aa)[..., None] * background
+        with trace.span("dogs.raster.blend_fwd"):
+            if ent_n.is_cuda and cfg.use_kernel:
+                out = blend.blend_forward(*args)
+            else:
+                out = blend.blend_forward_reference(*args, tile_size=cfg.tile_size)
+            # out: (T, 5, P) rows R, G, B, A, invD, no background.
+            aa = out[:, 3]
+            img = out[:, 0:3].transpose(1, 2) + (1.0 - aa)[..., None] * background
         ctx.save_for_backward(ent_n, sorted_idx, starts, order, background, out)
         ctx.grid, ctx.cfg = grid, cfg
         return img, aa, out[:, 4]
@@ -138,18 +140,20 @@ class _TileBlend(torch.autograd.Function):
         d_bg = (cot_img * (1.0 - aa)[..., None]).sum(dim=(0, 1))
         if not ctx.needs_input_grad[0]:
             return None, d_bg, None, None, None, None, None
-        cot = blend.backward_cotangent(out, cot_img, cot_a, cot_d, background)
-        args = (ent_n, sorted_idx, starts, cot, *ctx.grid)
         use_kernel = ent_n.is_cuda and cfg.use_kernel
-        if use_kernel:
-            d_ent = blend.blend_backward(*args, depth_threshold=cfg.depth_threshold)
-        else:
-            d_ent = blend.blend_backward_reference(
-                *args, depth_threshold=cfg.depth_threshold, tile_size=cfg.tile_size
+        with trace.span("dogs.raster.blend_bwd"):
+            cot = blend.backward_cotangent(out, cot_img, cot_a, cot_d, background)
+            args = (ent_n, sorted_idx, starts, cot, *ctx.grid)
+            if use_kernel:
+                d_ent = blend.blend_backward(*args, depth_threshold=cfg.depth_threshold)
+            else:
+                d_ent = blend.blend_backward_reference(
+                    *args, depth_threshold=cfg.depth_threshold, tile_size=cfg.tile_size
+                )
+        with trace.span("dogs.raster.reduce"):
+            d_ent_n = reduce.reduce_entries(
+                d_ent, order, sorted_idx, ent_n.shape[0], cfg.reduce_dtype, use_kernel
             )
-        d_ent_n = reduce.reduce_entries(
-            d_ent, order, sorted_idx, ent_n.shape[0], cfg.reduce_dtype, use_kernel
-        )
         return d_ent_n, d_bg, None, None, None, None, None
 
 
@@ -188,27 +192,30 @@ def render_tiled(
     if device.type == "cuda" and cfg.use_kernel and ts != blend.TILE:
         raise ValueError(f"the blend kernels are built for {blend.TILE}px tiles, not {ts}")
 
-    proj = project_gaussians(
-        params,
-        camera,
-        alive=alive,
-        active_sh_degree=active_sh_degree,
-        antialiasing=cfg.antialiasing,
-        scale_modifier=scale_modifier,
-        means2d_offset=means2d_offset,
-        color_override=color_override,
-    )
+    with trace.span("dogs.raster.project"):
+        proj = project_gaussians(
+            params,
+            camera,
+            alive=alive,
+            active_sh_degree=active_sh_degree,
+            antialiasing=cfg.antialiasing,
+            scale_modifier=scale_modifier,
+            means2d_offset=means2d_offset,
+            color_override=color_override,
+        )
     # Binning's outputs are integers: it runs on detached fields, so no
     # K-sized autograd graph is recorded for it.
-    bins = build_tile_bins(
-        _detached(proj), h, w,
-        tile_size=ts,
-        max_tiles_per_gaussian=cfg.max_tiles_per_gaussian,
-        tile_culling=cfg.tile_culling,
-    )
+    with trace.span("dogs.raster.bin"):
+        bins = build_tile_bins(
+            _detached(proj), h, w,
+            tile_size=ts,
+            max_tiles_per_gaussian=cfg.max_tiles_per_gaussian,
+            tile_culling=cfg.tile_culling,
+        )
+    with trace.span("dogs.raster.entries"):
+        ent_n = entry_matrix(proj, invd_offset)
     img, aa, dd = _TileBlend.apply(
-        entry_matrix(proj, invd_offset), background, bins.sorted_idx, bins.tile_starts, bins.order,
-        (n_tiles_y, n_tiles_x, w, h), cfg,
+        ent_n, background, bins.sorted_idx, bins.tile_starts, bins.order, (n_tiles_y, n_tiles_x, w, h), cfg,
     )
 
     def untile(x):

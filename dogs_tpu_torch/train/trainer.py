@@ -22,7 +22,14 @@ the GT resized on the host (`data/dataset.py:resize_image`), cached per
 (image, factor). The profiler hooks (`profile_num_steps` > 0) trace
 `profile_num_steps` steps from `max(profile_start_step, 1)` with
 `torch.profiler` and write a Chrome trace (`*.json`) to `profile_dir`
-(dogs_tpu writes an XLA trace directory).
+(dogs_tpu writes an XLA trace directory). Under that or any other profiler
+the loop and the step open the spans of utils/trace.py: each iteration a
+`dogs.trainer.step#<n>` holding `dogs.trainer.gt`, `dogs.trainer.densify`,
+`dogs.trainer.validate` and `dogs.trainer.checkpoint`, and each step a
+`dogs.step` of `dogs.step.render`, `dogs.step.loss`, `dogs.step.backward`,
+`dogs.step.adam` and `dogs.step.stats`, with the raster's spans and the
+host syncs (`dogs.sync.*`) inside; with none running they cost one check
+each.
 
 The per-image state (exposure, pose deltas, the mask's embedding) has one
 row per train camera and is indexed by the camera's `image_index`, which
@@ -74,6 +81,7 @@ from dogs_tpu_torch.train.optim import (
     init_sparse_adam,
     sparse_adam_step,
 )
+from dogs_tpu_torch.utils import trace
 
 logger = logging.getLogger(__name__)
 
@@ -308,56 +316,65 @@ def make_train_step(
         if len(admm_in) != (3 if admm else 0):
             raise TypeError(f"train_step takes (ts, camera, gt{', u, z_local, rho' if admm else ''}), "
                             f"got {len(admm_in)} extra arguments")
+        with trace.span("dogs.step"):
+            return step_body(ts, camera, gt, *admm_in)
+
+    def step_body(ts: TrainState, camera: Camera, gt: torch.Tensor, *admm_in):
         model = ts.model
         params = model.params
         device = params.xyz.device
-        bg = torch.tensor(background, dtype=torch.float32, device=device)
-        offset = torch.zeros((params.capacity, 2), device=device, requires_grad=True)
         index = camera.image_index
         row = min(index, ts.exposure.shape[0] - 1)  # dogs_tpu's clamped gather
         owns_row = index < ts.exposure.shape[0]  # else its scatter drops the update
         extra = {}  # the per-image leaves this step differentiates
-        if cfg.optimize_camera_poses:
-            extra["pose"] = ts.pose_deltas[row].detach().clone().requires_grad_(True)
-            dR, dt = se3_exp(extra["pose"])
-            camera = dataclasses.replace(camera, R=matmul3(dR, camera.R),
-                                         t=matmul3(dR, camera.t[:, None])[:, 0] + dt)
-        if cfg.use_trained_exposure:
-            extra["exposure"] = ts.exposure[row].detach().clone().requires_grad_(True)
         mask_leaves = appearance.flatten(ts.mask_params) if cfg.use_appearance_mask else {}
         with appearance.exact_f32() if cfg.use_appearance_mask else contextlib.nullcontext():
-            out = render_tiled(
-                params, camera, raster_cfg, background=bg, alive=model.alive,
-                active_sh_degree=active_sh_degree, means2d_offset=offset,
-            )
-            img = out.image
-            if cfg.use_trained_exposure:
-                img = apply_exposure(img, extra["exposure"])
-            img = torch.clamp(img, 0.0, 1.0)
-            mask_reg = 0.0
-            if cfg.use_appearance_mask:
-                # VastGaussian: L1 on the masked render, SSIM on the raw render.
-                mask = appearance.apply_appearance(ts.mask_params, img, index)
-                l1, mask_reg = appearance.appearance_loss_terms(mask, img, gt, cfg.lambda_mask)
-            else:
-                l1 = torch.mean(torch.abs(img - gt))
-            loss_ssim = ssim(img, gt)
-            loss = (1.0 - cfg.lambda_dssim) * l1 + cfg.lambda_dssim * (1.0 - loss_ssim) + mask_reg
-            # Scale regularizer: mean over alive Gaussians of prod(scale).
-            n_alive = torch.clamp(model.alive.sum(dtype=torch.float32), min=1.0)
-            vol = torch.prod(params.scale, dim=-1)
-            loss_scaling = torch.where(model.alive, vol, torch.zeros_like(vol)).sum() / n_alive
-            loss = loss + cfg.lambda_scale * loss_scaling
-            if admm:
-                u, z_local, rho = admm_in
-                for k in PARAM_NAMES:
-                    x = getattr(params, k)
-                    sq = torch.where(model.alive.view((-1,) + (1,) * (x.dim() - 1)),
-                                     (x + u[k].detach() - z_local[k].detach()) ** 2, 0.0)
-                    denom = torch.clamp(n_alive * float(np.prod(x.shape[1:])), min=1.0)
-                    loss = loss + 0.5 * rho[k] * sq.sum() / denom
-            leaves = [getattr(params, k) for k in PARAM_NAMES] + [offset]
-            grads = torch.autograd.grad(loss, leaves + list(extra.values()) + list(mask_leaves.values()))
+            with trace.span("dogs.step.render"):
+                with trace.readback("step_background"):
+                    bg = torch.tensor(background, dtype=torch.float32, device=device)
+                offset = torch.zeros((params.capacity, 2), device=device, requires_grad=True)
+                if cfg.optimize_camera_poses:
+                    extra["pose"] = ts.pose_deltas[row].detach().clone().requires_grad_(True)
+                    dR, dt = se3_exp(extra["pose"])
+                    camera = dataclasses.replace(camera, R=matmul3(dR, camera.R),
+                                                 t=matmul3(dR, camera.t[:, None])[:, 0] + dt)
+                if cfg.use_trained_exposure:
+                    extra["exposure"] = ts.exposure[row].detach().clone().requires_grad_(True)
+                out = render_tiled(
+                    params, camera, raster_cfg, background=bg, alive=model.alive,
+                    active_sh_degree=active_sh_degree, means2d_offset=offset,
+                )
+                img = out.image
+                if cfg.use_trained_exposure:
+                    img = apply_exposure(img, extra["exposure"])
+                img = torch.clamp(img, 0.0, 1.0)
+            with trace.span("dogs.step.loss"):
+                mask_reg = 0.0
+                if cfg.use_appearance_mask:
+                    # VastGaussian: L1 on the masked render, SSIM on the raw render.
+                    mask = appearance.apply_appearance(ts.mask_params, img, index)
+                    l1, mask_reg = appearance.appearance_loss_terms(mask, img, gt, cfg.lambda_mask)
+                else:
+                    l1 = torch.mean(torch.abs(img - gt))
+                loss_ssim = ssim(img, gt)
+                loss = (1.0 - cfg.lambda_dssim) * l1 + cfg.lambda_dssim * (1.0 - loss_ssim) + mask_reg
+                # Scale regularizer: mean over alive Gaussians of prod(scale).
+                n_alive = torch.clamp(model.alive.sum(dtype=torch.float32), min=1.0)
+                vol = torch.prod(params.scale, dim=-1)
+                vol = trace.readback_in_backward(vol, "scale_reg_backward")
+                loss_scaling = torch.where(model.alive, vol, torch.zeros_like(vol)).sum() / n_alive
+                loss = loss + cfg.lambda_scale * loss_scaling
+                if admm:
+                    u, z_local, rho = admm_in
+                    for k in PARAM_NAMES:
+                        x = getattr(params, k)
+                        sq = torch.where(model.alive.view((-1,) + (1,) * (x.dim() - 1)),
+                                         (x + u[k].detach() - z_local[k].detach()) ** 2, 0.0)
+                        denom = torch.clamp(n_alive * float(np.prod(x.shape[1:])), min=1.0)
+                        loss = loss + 0.5 * rho[k] * sq.sum() / denom
+            with trace.span("dogs.step.backward"):
+                leaves = [getattr(params, k) for k in PARAM_NAMES] + [offset]
+                grads = torch.autograd.grad(loss, leaves + list(extra.values()) + list(mask_leaves.values()))
         g_params, g_offset = grads[:len(PARAM_NAMES)], grads[len(PARAM_NAMES)]
         g_extra = dict(zip(extra, grads[len(leaves):len(leaves) + len(extra)]))
         g_mask = grads[len(leaves) + len(extra):]
@@ -366,34 +383,37 @@ def make_train_step(
             radii = out.radii.detach()
             visible = (radii > 0.0) & model.alive
             n_alive_before = model.num_alive
-            sparse_adam_step(params, dict(zip(PARAM_NAMES, g_params)), ts.opt, visible, lrs_fn(ts.step))
-            if ts.step < cfg.densify_end_iter:
-                update_densify_stats(model, g_offset, radii, camera.width, camera.height)
-            mu, nu = appearance.flatten(ts.mask_mu), appearance.flatten(ts.mask_nu)
-            for (key, p), g in zip(mask_leaves.items(), g_mask):
-                _adam_in_place(p, g, mu[key], nu[key], cfg.mask_lr, ts.step)
-            if cfg.use_trained_exposure and owns_row:
-                _adam_in_place(ts.exposure[row], g_extra["exposure"], ts.exposure_mu[row], ts.exposure_nu[row],
-                               exposure_lr_fn(ts.step), ts.step)
-            if cfg.optimize_camera_poses and owns_row:
-                lr = cfg.pose_lr if ts.step >= cfg.opt_pose_start_iter and index != 0 else 0.0
-                _adam_in_place(ts.pose_deltas[row], g_extra["pose"], ts.pose_mu[row], ts.pose_nu[row], lr, ts.step)
-            mse = torch.mean((img - gt) ** 2)
-            zero = torch.zeros((), dtype=torch.int64, device=device)
-            metrics = dict(
-                loss=loss.detach(),
-                l1=l1.detach(),
-                ssim=loss_ssim.detach(),
-                psnr=-10.0 * torch.log(mse) / math.log(10.0),
-                scale_loss=loss_scaling.detach(),
-                n_visible=visible.sum(),
-                n_alive=n_alive_before,
-                bin_valid=out.bin_valid,
-                bin_rect_truncated=out.bin_rect_truncated,
-                bin_pool_truncated=zero,
-                bin_dropped=out.bin_dropped,
-                bin_pool_need=zero,
-            )
+            with trace.span("dogs.step.adam"):
+                sparse_adam_step(params, dict(zip(PARAM_NAMES, g_params)), ts.opt, visible, lrs_fn(ts.step))
+                mu, nu = appearance.flatten(ts.mask_mu), appearance.flatten(ts.mask_nu)
+                for (key, p), g in zip(mask_leaves.items(), g_mask):
+                    _adam_in_place(p, g, mu[key], nu[key], cfg.mask_lr, ts.step)
+                if cfg.use_trained_exposure and owns_row:
+                    _adam_in_place(ts.exposure[row], g_extra["exposure"], ts.exposure_mu[row],
+                                   ts.exposure_nu[row], exposure_lr_fn(ts.step), ts.step)
+                if cfg.optimize_camera_poses and owns_row:
+                    lr = cfg.pose_lr if ts.step >= cfg.opt_pose_start_iter and index != 0 else 0.0
+                    _adam_in_place(ts.pose_deltas[row], g_extra["pose"], ts.pose_mu[row], ts.pose_nu[row], lr,
+                                   ts.step)
+            with trace.span("dogs.step.stats"):
+                if ts.step < cfg.densify_end_iter:
+                    update_densify_stats(model, g_offset, radii, camera.width, camera.height)
+                mse = torch.mean((img - gt) ** 2)
+                zero = torch.zeros((), dtype=torch.int64, device=device)
+                metrics = dict(
+                    loss=loss.detach(),
+                    l1=l1.detach(),
+                    ssim=loss_ssim.detach(),
+                    psnr=-10.0 * torch.log(mse) / math.log(10.0),
+                    scale_loss=loss_scaling.detach(),
+                    n_visible=visible.sum(),
+                    n_alive=n_alive_before,
+                    bin_valid=out.bin_valid,
+                    bin_rect_truncated=out.bin_rect_truncated,
+                    bin_pool_truncated=zero,
+                    bin_dropped=out.bin_dropped,
+                    bin_pool_need=zero,
+                )
         ts.step += 1
         return ts, metrics
 
@@ -568,12 +588,13 @@ class GaussianSplatTrainer:
         if gt is not None:
             self._gt_cache.move_to_end(key)
             return gt
-        img = self.images[idx]
-        if res > 1:
-            cam = self.cameras[idx].downsample(res)
-            img = img.detach().cpu().numpy() if torch.is_tensor(img) else np.asarray(img, np.float32)
-            img = resize_image(img, cam.width, cam.height)
-        gt = _as_image(img, self.device)
+        with trace.span("dogs.trainer.gt"):
+            img = self.images[idx]
+            if res > 1:
+                cam = self.cameras[idx].downsample(res)
+                img = img.detach().cpu().numpy() if torch.is_tensor(img) else np.asarray(img, np.float32)
+                img = resize_image(img, cam.width, cam.height)
+            gt = _as_image(img, self.device)
         if self.cfg.gt_cache_bytes:
             self._gt_cache[key] = gt
             self._gt_cache_bytes += gt.nbytes
@@ -591,41 +612,47 @@ class GaussianSplatTrainer:
         cfg = self.cfg
         if not (cfg.densify_start_iter < step < cfg.densify_end_iter) or step % cfg.densification_interval:
             return
-        capacity = self.state.model.capacity
-        if cfg.reactive_capacity_growth:
-            # The previous event's overflow: computed an interval ago, so the
-            # read waits for nothing.
-            need = int(self._last_overflow) if self._last_overflow is not None else 0
+        with trace.span("dogs.trainer.densify"):
+            capacity = self.state.model.capacity
+            if cfg.reactive_capacity_growth:
+                # The previous event's overflow: computed an interval ago, so the
+                # read waits for nothing but the queue.
+                with trace.readback("densify_need"):
+                    need = int(self._last_overflow) if self._last_overflow is not None else 0
+                if need > 0:
+                    logger.info("reactive capacity growth %d -> %d (%d dropped last event)",
+                                capacity, round_up_capacity(capacity + need), need)
+            else:
+                with trace.readback("densify_need"):
+                    need = int(required_slots(self.state.model, cfg.densify_grad_threshold, cfg.percent_dense,
+                                              self.spatial_lr_scale))
+                if need > 0:
+                    logger.info("growing capacity %d -> %d", capacity, round_up_capacity(capacity + need))
             if need > 0:
-                logger.info("reactive capacity growth %d -> %d (%d dropped last event)",
-                            capacity, round_up_capacity(capacity + need), need)
-        else:
-            need = int(required_slots(self.state.model, cfg.densify_grad_threshold, cfg.percent_dense,
-                                      self.spatial_lr_scale))
-            if need > 0:
-                logger.info("growing capacity %d -> %d", capacity, round_up_capacity(capacity + need))
-        if need > 0:
-            self.state = grow_capacity(self.state, round_up_capacity(capacity + need))
-        size_threshold = cfg.size_threshold if step > cfg.opacity_reset_interval else None
-        _, allocated, overflow = densify_and_prune(
-            self.state.model, self._split_noise(self.state.model.capacity), cfg.densify_grad_threshold,
-            cfg.min_opacity, self.spatial_lr_scale, size_threshold, percent_dense=cfg.percent_dense,
-        )
-        zero_moments_at(self.state.opt, allocated)
-        self._last_overflow = overflow
-        self._pending_overflow.append(overflow)
-        if len(self._pending_overflow) >= 32:  # callers that never log still get the check
-            self._drain_overflow()
+                self.state = grow_capacity(self.state, round_up_capacity(capacity + need))
+            size_threshold = cfg.size_threshold if step > cfg.opacity_reset_interval else None
+            _, allocated, overflow = densify_and_prune(
+                self.state.model, self._split_noise(self.state.model.capacity), cfg.densify_grad_threshold,
+                cfg.min_opacity, self.spatial_lr_scale, size_threshold, percent_dense=cfg.percent_dense,
+            )
+            zero_moments_at(self.state.opt, allocated)
+            self._last_overflow = overflow
+            self._pending_overflow.append(overflow)
+            if len(self._pending_overflow) >= 32:  # callers that never log still get the check
+                self._drain_overflow()
 
     def _drain_overflow(self, metrics: dict | None = None) -> dict:
         """Read `metrics` and the overflow of every densify event since the
         last drain in one transfer, and log each overflow (every dropped
         candidate is logged). Returns the metrics as floats."""
         metrics = metrics or {}
-        vals = [torch.as_tensor(v, dtype=torch.float64, device=self.device) for v in metrics.values()]
-        vals += [ov.to(torch.float64) for ov in self._pending_overflow]
+        fetched = []
+        if metrics or self._pending_overflow:
+            with trace.readback("metrics"):
+                vals = [torch.as_tensor(v, dtype=torch.float64, device=self.device) for v in metrics.values()]
+                vals += [ov.to(torch.float64) for ov in self._pending_overflow]
+                fetched = torch.stack(vals).tolist()
         self._pending_overflow.clear()
-        fetched = torch.stack(vals).tolist() if vals else []
         for ov in fetched[len(metrics):]:
             if ov > 0:
                 logger.warning("densify overflow: %d candidates dropped", int(ov))
@@ -693,10 +720,11 @@ class GaussianSplatTrainer:
         every `checkpoint_every` steps a checkpoint goes to
         `checkpoint_manager`. With `profile_num_steps` > 0 the steps from
         max(profile_start_step, 1) on, `profile_num_steps` of them, run
-        under `torch.profiler` (CPU, and CUDA on the card), each in a
-        `train_step_<step>` span; the device is synchronized before the
-        trace stops and its Chrome trace goes to `profile_dir`.
-        Returns the last step's metrics."""
+        under `torch.profiler` (CPU, and CUDA on the card); the device is
+        synchronized before the trace stops and its Chrome trace goes to
+        `profile_dir`. Under any profiler each iteration is a
+        `dogs.trainer.step#<step>` span (utils/trace.py names the spans
+        inside it). Returns the last step's metrics."""
         cfg = self.cfg
         n = num_iterations or cfg.max_iterations
         start = self.state.step
@@ -708,37 +736,36 @@ class GaussianSplatTrainer:
         for step in range(start + 1, start + n + 1):
             if step == trace_from:
                 prof, trace_until = self._start_profiler(), step + cfg.profile_num_steps
-            traced = prof is not None
-            with torch.profiler.record_function(f"train_step_{step}") if traced else contextlib.nullcontext():
+            with trace.span(f"dogs.trainer.step#{step}"):
                 metrics = self.train_iteration(step)
-            if traced and step + 1 >= trace_until:
+                for k in WINDOW_MAX_KEYS:
+                    v = metrics[k]
+                    if k in window_max:
+                        v = torch.maximum(window_max[k], v) if torch.is_tensor(v) else max(window_max[k], v)
+                    window_max[k] = v
+                if log_every and step % log_every == 0:
+                    m = self._drain_overflow({**metrics, **window_max})
+                    window_max.clear()
+                    m["iters_per_sec"] = (step - start) / (time.time() - t0)
+                    m["step"] = step
+                    m["capacity"] = self.state.model.capacity
+                    self.metrics_history.append(m)
+                    logger.info("step %d loss %.4f psnr %.2f alive %d capacity %d (%.1f it/s)", step, m["loss"],
+                                m["psnr"], int(m["n_alive"]), m["capacity"], m["iters_per_sec"])
+                    if tensorboard_writer is not None:
+                        for k, v in m.items():
+                            tensorboard_writer.add_scalar(f"train/{k}", v, step)
+                if validate_every and step % validate_every == 0:
+                    val = self.validate()
+                    if val:
+                        logger.info("step %d val_psnr %.2f", step, val["val_psnr"])
+                        if tensorboard_writer is not None:
+                            tensorboard_writer.add_scalar("val/psnr", val["val_psnr"], step)
+                if checkpoint_every and checkpoint_manager and step % checkpoint_every == 0:
+                    self.save_checkpoint(checkpoint_manager)
+            if prof is not None and step + 1 >= trace_until:
                 self._stop_profiler(prof, trace_from, step)
                 prof = None
-            for k in WINDOW_MAX_KEYS:
-                v = metrics[k]
-                if k in window_max:
-                    v = torch.maximum(window_max[k], v) if torch.is_tensor(v) else max(window_max[k], v)
-                window_max[k] = v
-            if log_every and step % log_every == 0:
-                m = self._drain_overflow({**metrics, **window_max})
-                window_max.clear()
-                m["iters_per_sec"] = (step - start) / (time.time() - t0)
-                m["step"] = step
-                m["capacity"] = self.state.model.capacity
-                self.metrics_history.append(m)
-                logger.info("step %d loss %.4f psnr %.2f alive %d capacity %d (%.1f it/s)", step, m["loss"],
-                            m["psnr"], int(m["n_alive"]), m["capacity"], m["iters_per_sec"])
-                if tensorboard_writer is not None:
-                    for k, v in m.items():
-                        tensorboard_writer.add_scalar(f"train/{k}", v, step)
-            if validate_every and step % validate_every == 0:
-                val = self.validate()
-                if val:
-                    logger.info("step %d val_psnr %.2f", step, val["val_psnr"])
-                    if tensorboard_writer is not None:
-                        tensorboard_writer.add_scalar("val/psnr", val["val_psnr"], step)
-            if checkpoint_every and checkpoint_manager and step % checkpoint_every == 0:
-                self.save_checkpoint(checkpoint_manager)
         if prof is not None:  # the run ended inside the traced window
             self._stop_profiler(prof, trace_from, start + n)
         self._drain_overflow()
@@ -773,17 +800,18 @@ class GaussianSplatTrainer:
         split-noise generator (with its device type: a CUDA generator's state
         is not a CPU one's) and the last event's overflow, so that a resumed
         run continues bit for bit on the device it was saved on."""
-        _, key, pos, *_ = self.rng.get_state()
-        extra = {
-            "np_rng": key.tolist(),
-            "spatial_lr_scale": self.spatial_lr_scale,
-            "np_rng_pos": int(pos),
-            "camera_order": [int(i) for i in self._order],
-            "noise_rng": self.noise_gen.get_state().tolist(),
-            "noise_rng_device": self.device.type,
-            "last_overflow": None if self._last_overflow is None else int(self._last_overflow),
-        }
-        return manager.save(self.state.step, self.state, extra)
+        with trace.span("dogs.trainer.checkpoint"):
+            _, key, pos, *_ = self.rng.get_state()
+            extra = {
+                "np_rng": key.tolist(),
+                "spatial_lr_scale": self.spatial_lr_scale,
+                "np_rng_pos": int(pos),
+                "camera_order": [int(i) for i in self._order],
+                "noise_rng": self.noise_gen.get_state().tolist(),
+                "noise_rng_device": self.device.type,
+                "last_overflow": None if self._last_overflow is None else int(self._last_overflow),
+            }
+            return manager.save(self.state.step, self.state, extra)
 
     def load_checkpoint(self, manager, path: str | None = None) -> int:
         """Resume from `path` or the manager's latest checkpoint, written by
@@ -830,14 +858,15 @@ class GaussianSplatTrainer:
             return {}
         psnrs = []
         deg = self.active_sh_degree(self.state.step)
-        bg = torch.tensor(self.background, dtype=torch.float32, device=self.device)
-        for cam, gt in zip(self.val_cameras, self.val_images):
-            gt = _as_image(gt, self.device)
-            out = render_tiled(
-                self.state.model.params, cam, self.raster_cfg, background=bg,
-                alive=self.state.model.alive, active_sh_degree=deg,
-            )
-            img = color_correct(torch.clamp(out.image, 0.0, 1.0), gt)
-            mse = float(torch.mean((img - gt) ** 2))
-            psnrs.append(-10.0 * math.log10(max(mse, 1e-10)))
+        with trace.span("dogs.trainer.validate"):
+            bg = torch.tensor(self.background, dtype=torch.float32, device=self.device)
+            for cam, gt in zip(self.val_cameras, self.val_images):
+                gt = _as_image(gt, self.device)
+                out = render_tiled(
+                    self.state.model.params, cam, self.raster_cfg, background=bg,
+                    alive=self.state.model.alive, active_sh_degree=deg,
+                )
+                img = color_correct(torch.clamp(out.image, 0.0, 1.0), gt)
+                mse = float(torch.mean((img - gt) ** 2))
+                psnrs.append(-10.0 * math.log10(max(mse, 1e-10)))
         return {"val_psnr": float(np.mean(psnrs))}

@@ -268,7 +268,7 @@ def test_master_coarse_to_fine_stages_as_dogs_tpu(equal_gt):
 def test_train_cli_coarse_to_fine_with_the_profiler(tmp_path, caplog):
     """The train CLI with geometry.coarse-to-fine and the profiler over
     steps 2-3 (across the 4 -> 2 switch of c2f_interval 3): one Chrome
-    trace with a train_step span for each traced step, logged as dogs_tpu
+    trace with a dogs.trainer.step span for each traced step, logged as dogs_tpu
     logs it, and a final state equal to the unprofiled run's, bit for bit."""
     common = ["--config", str(REPO / "config" / "gaussian_splatting" / "synthetic_smoke.yaml"), "device=cpu",
               "trainer.max_iterations=6", "geometry.densify_end_iter=9", "geometry.coarse-to-fine=true"]
@@ -281,8 +281,8 @@ def test_train_cli_coarse_to_fine_with_the_profiler(tmp_path, caplog):
     assert [p.name for p in traces] == ["trace_steps_2_3.json"]
     assert f"profiler trace written to {traces[0]}" in caplog.text
     events = json.loads(traces[0].read_text())["traceEvents"]
-    spans = sorted({e["name"] for e in events if e.get("name", "").startswith("train_step_")})
-    assert spans == ["train_step_2", "train_step_3"]
+    spans = sorted({e["name"] for e in events if e.get("name", "").startswith("dogs.trainer.step#")})
+    assert spans == ["dogs.trainer.step#2", "dogs.trainer.step#3"]
     run = "gs_novel_view_synthesis_synthetic_toy/model/model.npz"
     with np.load(tmp_path / "plain" / run) as a, np.load(tmp_path / "traced" / run) as b:
         assert a.files == b.files
