@@ -19,7 +19,7 @@ port's own codec, baseline and progressive, and 16 MP PNGs, Scaffold-GS (anchors
 through the same three kernels) and the bench's modes, in phases:
 
   1. device   require CUDA; print the card's name and power limit
-  2. build    compile the three kernels from dogs_tpu_torch/csrc with nvcc,
+  2. build    compile the kernels from dogs_tpu_torch/csrc with nvcc,
               in parallel; print build seconds and ptxas registers/spills/smem
   3. parity   each kernel against its plain PyTorch version on the card, on
               small scenes: blend forward at atol 3e-4; blend backward at
@@ -43,7 +43,12 @@ through the same three kernels) and the bench's modes, in phases:
               PyTorch gather ent_n[sorted_idx] the fused blends replace, and
               the K->N index prep), the segment sum bit for bit against its
               plain version at these shapes, and the blend's pairs counted by
-              the plain path for the bounds;
+              the plain path for the bounds; the preprocess kernel pair
+              (projection + SH + the entry matrix, and its VJP) against its
+              plain version and timed beside its byte bound at 500k and 4M.
+              Every counted path's launches include the pair's: one
+              forward a render and one backward a K2 launch, so a path that
+              skips or repeats the preprocess fails;
   6b. host loop  GaussianSplatTrainer from points on a small scene, 30
               steps with densify at 10/20/30 and the opacity reset at 20 (val
               PSNR must rise before the reset, n_alive must change, train
@@ -227,7 +232,8 @@ through the same three kernels) and the bench's modes, in phases:
               training mode and the final val PSNR beats the step-0
               validation in the quality modes; each mode's launches counted
               from 0 and equal to one of each kernel a step (block step,
-              importance render) plus one K1 a GT and a val frame
+              importance render) plus one K1 and one preprocess forward a
+              teacher and a val frame and one K1 alone a budgeted GT
               (`bench_launches`), added to the kernels line; then, outside
               the counts, K1-K3 and one step's gradients against plain (6c's
               bars) at the inputs of --scaling's 4M step 25 (its 24 steps
@@ -407,9 +413,9 @@ def stage_line(stats: dict, device_s: float, n: int, names: list[str]) -> str:
             f"{sum(st.count for k, st in stats.items() if k.startswith('dogs.sync.')) / n:.0f} host syncs a step")
 
 
-STEP_SPANS = ["dogs.step.render", "dogs.raster.project", "dogs.raster.bin", "dogs.raster.entries",
-              "dogs.raster.blend_fwd", "dogs.step.loss", "dogs.step.backward", "dogs.raster.blend_bwd",
-              "dogs.raster.reduce", "dogs.step.adam", "dogs.step.stats"]
+STEP_SPANS = ["dogs.step.render", "dogs.raster.project", "dogs.raster.bin", "dogs.raster.blend_fwd",
+              "dogs.step.loss", "dogs.step.backward", "dogs.raster.blend_bwd", "dogs.raster.reduce",
+              "dogs.raster.project_bwd", "dogs.step.adam", "dogs.step.stats"]
 
 
 def native_parser_times(path: str) -> tuple[float, float, int]:
@@ -447,30 +453,32 @@ def native_parser_times(path: str) -> tuple[float, float, int]:
     return native_s, numpy_s, n
 
 
-def bench_launches(mode: str, views: int = 40, val_views: int = 2) -> tuple[int, int]:
-    """The (K1, K2 = K3) launches that each of 6j's runs must make: one of
-    each kernel a training step (block step, importance render), one K1 a GT
-    render (the quality scene's `views`, bench.py's 8 teacher frames) and a
-    val frame (`val_views` at step 0, at each VAL_EVERY boundary before the
-    end, and at the end)."""
+def bench_launches(mode: str, views: int = 40, val_views: int = 2) -> dict:
+    """The launches of each kernel that each of 6j's runs must make: one of
+    each a training step (block step, importance render), one K1 and one
+    preprocess forward a teacher frame (bench.py's 8) and a val frame
+    (`val_views` at step 0, at each VAL_EVERY boundary before the end, and
+    at the end), and one K1 alone a budgeted GT render (the quality scene's
+    `views`)."""
     from dogs_tpu_torch.bench import VAL_EVERY
 
     def vals(steps):
         return val_views * (2 + len(range(VAL_EVERY, steps, VAL_EVERY)))
 
-    steps, k1_only = {
-        "headline": (16 + 48, 0),
-        "--scaling": (4 * (8 + 16), 0),
-        "--densify --cadence 100": (sum(BENCH_DENSIFY_WINDOWS), 8),
-        "--quality": (BENCH_QUALITY_STEPS, views + vals(BENCH_QUALITY_STEPS)),
-        "--admm": (sum(BENCH_ADMM_INTERVALS) * 200, 0),
-        "--consensus": (0, 0),
+    steps, frames, budgeted = {
+        "headline": (16 + 48, 0, 0),
+        "--scaling": (4 * (8 + 16), 0, 0),
+        "--densify --cadence 100": (sum(BENCH_DENSIFY_WINDOWS), 8, 0),
+        "--quality": (BENCH_QUALITY_STEPS, vals(BENCH_QUALITY_STEPS), views),
+        "--admm": (sum(BENCH_ADMM_INTERVALS) * 200, 0, 0),
+        "--consensus": (0, 0, 0),
         # the fusion's post-merge prune: one importance render a train view
-        "--quality-admm": (BENCH_QUALITY_STEPS + views - val_views, views + vals(BENCH_QUALITY_STEPS)),
-        "--scaffold": (sum(BENCH_SCAFFOLD_WINDOWS), 8),
-        "--scaffold-quality": (BENCH_SCAFFOLD_QUALITY_STEPS, views + vals(BENCH_SCAFFOLD_QUALITY_STEPS)),
+        "--quality-admm": (BENCH_QUALITY_STEPS + views - val_views, vals(BENCH_QUALITY_STEPS), views),
+        "--scaffold": (sum(BENCH_SCAFFOLD_WINDOWS), 8, 0),
+        "--scaffold-quality": (BENCH_SCAFFOLD_QUALITY_STEPS, vals(BENCH_SCAFFOLD_QUALITY_STEPS), views),
     }[mode]
-    return steps + k1_only, steps
+    return {"blend_forward": steps + frames + budgeted, "blend_backward": steps, "sorted_segment_sum": steps,
+            "preprocess_forward": steps + frames, "preprocess_backward": steps}
 
 
 def bench_phase(h) -> None:
@@ -533,10 +541,10 @@ def bench_phase(h) -> None:
             seconds[mode] = time.perf_counter() - t0
             for text in out.getvalue().splitlines():
                 print(f"[bench] {text}")
-            launches[mode] = h.add_counts(f"bench {mode}", list(h.counted) if mode != "--consensus" else [])
-            k1, k23 = bench_launches(mode)
-            check(launches[mode] == {"blend_forward": k1, "blend_backward": k23, "sorted_segment_sum": k23},
-                  f"bench {mode}: launches {launches[mode]}, expected K1 {k1}, K2 and K3 {k23}")
+            want = bench_launches(mode)
+            launches[mode] = h.add_counts(f"bench {mode}", list(h.counted) if mode != "--consensus" else [],
+                                          budgeted=want["blend_forward"] - want["preprocess_forward"])
+            check(launches[mode] == want, f"bench {mode}: launches {launches[mode]}, expected {want}")
             messages = [r.getMessage() for r in records]
             check(len(lines) == {"--scaling": 4, "--consensus": 3}.get(mode, 1),
                   f"bench {mode}: {len(lines)} lines")
@@ -983,7 +991,7 @@ JPEG_FIXTURE = "tests/data/torch_jpeg"  # PIL's JPEGs and PIL's decodes of them 
 COUNTED_CLI = r"""
 import json, runpy, sys, time
 import torch
-from dogs_tpu_torch.raster import blend, reduce
+from dogs_tpu_torch.raster import blend, preprocess, reduce
 from dogs_tpu_torch.train.trainer import GaussianSplatTrainer
 from dogs_tpu_torch.utils import gif
 
@@ -1020,7 +1028,8 @@ gif.write_gif = timed_gif
 sys.argv = sys.argv[1:]
 runpy.run_module(sys.argv[0], run_name="__main__", alter_sys=True)
 rec["launches"] = {fn.__name__: fn.launches for fn in (blend.blend_forward, blend.blend_backward,
-                                                       reduce.sorted_segment_sum)}
+                                                       reduce.sorted_segment_sum, preprocess.preprocess_forward,
+                                                       preprocess.preprocess_backward)}
 rec["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
 print("[counted] " + json.dumps(rec))
 """
@@ -1496,7 +1505,7 @@ def main() -> int:
     from dogs_tpu_torch.fields.model import GaussianModelState
     from dogs_tpu_torch.parallel import admm as admm_mod
     from dogs_tpu_torch.parallel import master as master_mod
-    from dogs_tpu_torch.raster import blend, reduce
+    from dogs_tpu_torch.raster import blend, preprocess, reduce
     from dogs_tpu_torch.raster.binning import build_tile_bins
     from dogs_tpu_torch.raster.projection import project_gaussians
     from dogs_tpu_torch.raster.ssim import ssim
@@ -1512,19 +1521,26 @@ def main() -> int:
     # Full-f32 references: matmuls and convolutions without TF32.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    counted = {blend.blend_forward: 0, blend.blend_backward: 0, reduce.sorted_segment_sum: 0}
+    counted = {blend.blend_forward: 0, blend.blend_backward: 0, reduce.sorted_segment_sum: 0,
+               preprocess.preprocess_forward: 0, preprocess.preprocess_backward: 0}
 
     def reset_counts():
         for fn in counted:
             fn.launches = 0
 
-    def add_counts(path: str, required) -> dict:
+    def add_counts(path: str, required, budgeted: int = 0) -> dict:
         """Read the counts of a main-path run; fail if a kernel it needs
-        was never launched."""
+        was never launched, or if a render did not go through the
+        preprocess pair: one forward a K1 launch, one backward a K2 launch
+        (`budgeted`: K1 launches of bench.py's budgeted GT, which blend
+        entries of the plain projection)."""
         got = {fn.__name__: fn.launches for fn in counted}
         print(f"[{path}] kernel launches: {got}")
         for fn in required:
             check(fn.launches > 0, f"{path}: {fn.__name__} was not launched")
+        check(got["preprocess_forward"] == got["blend_forward"] - budgeted
+              and got["preprocess_backward"] == got["blend_backward"],
+              f"{path}: launches {got}: not one preprocess forward a render and one backward a K2")
         for fn in counted:
             counted[fn] += fn.launches
         return got
@@ -1601,7 +1617,7 @@ def main() -> int:
             dict(synthetic.RANDOM_SCENE_VIEW, width=200, height=130, fx=120.0, fy=120.0), 2,
         ),
     }
-    max_err = dict.fromkeys(("fwd", "bwd", "seg"), 0.0)
+    max_err = dict.fromkeys(("fwd", "bwd", "seg", "pre_fwd", "pre_bwd"), 0.0)
     with torch.no_grad():
         for name, (arrays, view, deg) in small.items():
             params = params_from_numpy(arrays, dev)
@@ -1878,6 +1894,78 @@ def main() -> int:
                   f"share {bounds[name][0] / kernel_ms[name]:.3f}")
         print(f"[bounds] pairs at the training shapes (K={k}): visited {work.visited:,} "
               f"(at most K x 256 = {k * 256:,}), contributing {work.contributing:,}")
+
+        # The preprocess pair on bench camera 0 at 500k (phase 5's perturbed
+        # model) and at 4M (another bench draw, its scales perturbed alike:
+        # the bench scene's isotropic scales leave the quaternion gradient
+        # pure rounding noise), SH 3, every slot alive, with the densify
+        # offset: each kernel against its plain version (forward per column
+        # within 1e-5 of the column's largest value, every gradient within
+        # 1e-4 of its largest, the backward bit for bit over two launches),
+        # its time, and its byte bound (inputs read once, outputs written
+        # once).
+        grad_names = ("xyz", "log_scale", "quat", "logit_opacity", "feat_dc", "feat_rest", "means2d_offset")
+        arrays_4m = synthetic.bench_scene_arrays(4_000_000, seed=1)
+        arrays_4m["log_scale"] += np.random.RandomState(3).normal(0.0, 0.2, arrays_4m["log_scale"].shape).astype(
+            np.float32)
+        pre_times = {}
+        for label, pa in (("500k", arrays), ("4M", arrays_4m)):
+            npre = pa["xyz"].shape[0]
+            x = preprocess.Inputs(
+                *(torch.as_tensor(pa[key], device=dev) for key in ("xyz", "log_scale", "quat", "logit_opacity",
+                                                                   "feat_dc", "feat_rest")),
+                None, torch.zeros((npre, 2), device=dev), None, cams[0],
+                alive=torch.ones(npre, dtype=torch.bool, device=dev), degree=3)
+            ent_p, rad_p = preprocess.preprocess_forward(x)
+            want_ent, want_rad = preprocess.preprocess_forward_reference(x)
+            fwd_err = max(float((ent_p[:, c] - want_ent[:, c]).abs().max() / (want_ent[:, c].abs().max() + 1e-12))
+                          for c in range(blend.ENT_WIDTH))
+            rad_off = int((rad_p != want_rad).sum())
+            gen = torch.Generator(device=dev).manual_seed(13)
+            d_ent_p = torch.randn((npre, blend.ENT_WIDTH), generator=gen, device=dev) * (rad_p > 0)[:, None]
+            needs = [key in grad_names for key in preprocess.GRAD_NAMES]
+            g1 = preprocess.preprocess_backward(x, d_ent_p, rad_p, needs)
+            g2 = preprocess.preprocess_backward(x, d_ent_p, rad_p, needs)
+            gref = preprocess.preprocess_backward_reference(x, d_ent_p, rad_p, needs)
+            torch.cuda.synchronize()
+            errs = {key: float((a - r).abs().max() / (r.abs().max() + 1e-12))
+                    for key, a, r in zip(preprocess.GRAD_NAMES, g1, gref) if r is not None}
+            bwd_err = max(errs.values())
+            print(f"[parity] preprocess at {label}: forward max scaled |d| {fwd_err:.3e}, radii differ at "
+                  f"{rad_off} of {npre}; backward max scaled |d| "
+                  + ", ".join(f"{key} {e:.3e}" for key, e in errs.items()))
+            check(fwd_err <= 1e-5 and rad_off <= npre // 1000, f"preprocess forward at {label} differs from plain")
+            check(bwd_err <= 1e-4, f"preprocess backward at {label} differs from plain")
+            check(all(a is None or torch.equal(a, b) for a, b in zip(g1, g2)),
+                  f"preprocess backward at {label} is not deterministic")
+            # The kernels line's max_abs_err: absolute, as K1-K3's.
+            max_err["pre_fwd"] = max(max_err["pre_fwd"], float((ent_p - want_ent).abs().max()))
+            max_err["pre_bwd"] = max(max_err["pre_bwd"], *(float((a - r).abs().max())
+                                                           for a, r in zip(g1, gref) if r is not None))
+            del want_ent, want_rad, gref, g1, g2
+            fwd_ms = [cuda_ms(lambda: preprocess.preprocess_forward(x), 50),
+                      cuda_ms(lambda: preprocess.preprocess_forward_reference(x), 5)]
+            fwd_ms += [cuda_ms(lambda: preprocess.preprocess_forward(x), 50),
+                       cuda_ms(lambda: preprocess.preprocess_forward_reference(x), 5)]
+            bwd_ms = [cuda_ms(lambda: preprocess.preprocess_backward(x, d_ent_p, rad_p, needs), 50),
+                      cuda_ms(lambda: preprocess.preprocess_backward_reference(x, d_ent_p, rad_p, needs), 3)]
+            bwd_ms += [cuda_ms(lambda: preprocess.preprocess_backward(x, d_ent_p, rad_p, needs), 50),
+                       cuda_ms(lambda: preprocess.preprocess_backward_reference(x, d_ent_p, rad_p, needs), 3)]
+            leaves_b = 4 * (3 + 3 + 4 + 1 + 3 + 45) + 1  # the six leaves and alive
+            moved_pre = {"preprocess_forward": npre * (leaves_b + 4 * 2 + 4 * (blend.ENT_WIDTH + 1)),
+                         "preprocess_backward": npre * (2 * leaves_b - 1 + 4 * (blend.ENT_WIDTH + 1) + 4 * 2)}
+            for name, ms in (("preprocess_forward", fwd_ms), ("preprocess_backward", bwd_ms)):
+                bound = moved_pre[name] / PEAK_BYTES_PER_S * 1e3
+                pre_times[(name, label)] = (min(ms[0], ms[2]), min(ms[1], ms[3]), bound)
+                print(f"[kernels] {name} at {label} on bench cam 0 (SH 3): kernel {ms[0]:.4f}/{ms[2]:.4f} ms, "
+                      f"plain {ms[1]:.3f}/{ms[3]:.3f} ms; {moved_pre[name]:,} bytes -> bound {bound:.4f} ms, "
+                      f"share {bound / min(ms[0], ms[2]):.3f}")
+            del x, ent_p, rad_p, d_ent_p
+        del arrays_4m
+        for name in ("preprocess_forward", "preprocess_backward"):
+            kernel_ms[name], plain_ms[name], bound = pre_times[(name, "500k")]
+            bounds[name] = (bound, "bytes")
+            library_ms[name] = None  # no one PyTorch call computes the preprocess
     del ts, train_model, step
 
     # ---- 6b. train (main path 3): the host loop from points ----------------
@@ -2634,7 +2722,8 @@ def main() -> int:
         n_block_cams = sum(len(c) for c in am.block_cameras)
         steps_expected = 4 * ADMM_STEPS + 2 * n_block_cams  # block steps, the two prunes' importance renders
         check(admm_counts == {"blend_forward": steps_expected + 1, "blend_backward": steps_expected,
-                              "sorted_segment_sum": steps_expected},
+                              "sorted_segment_sum": steps_expected, "preprocess_forward": steps_expected + 1,
+                              "preprocess_backward": steps_expected},
               f"admm: launches {admm_counts}, expected {steps_expected} (+1 K1 for the val camera)")
         check([s for s, *_ in alog["steps"]] == list(range(1, ADMM_STEPS + 1)), "admm: master steps out of order")
         check(fusion["step"] == 30 and [r["step"] for r in rounds] == [40, 50, 60] and am.admm_enabled,
@@ -3029,6 +3118,9 @@ def main() -> int:
                            "bwd"),
         "sorted_segment_sum": ("dogs_tpu_torch/csrc/segment_sum.cu", "dogs_tpu/raster/pallas_reduce.py:136",
                                "seg"),
+        # No TPU kernel: dogs_tpu leaves projection, SH and the entry matrix to XLA's fusion.
+        "preprocess_forward": ("dogs_tpu_torch/csrc/preprocess.cu", None, "pre_fwd"),
+        "preprocess_backward": ("dogs_tpu_torch/csrc/preprocess.cu", None, "pre_bwd"),
     }
     totals = {fn.__name__: c for fn, c in counted.items()}
     print(json.dumps({"kernels": [
@@ -3045,6 +3137,8 @@ def main() -> int:
             "bound_by": bounds[name][1],
             "share": bounds[name][0] / kernel_ms[name],
             "library_ms": library_ms[name],
+            **({"ms_4m": pre_times[(name, "4M")][0], "plain_ms_4m": pre_times[(name, "4M")][1],
+                "bound_ms_4m": pre_times[(name, "4M")][2]} if (name, "4M") in pre_times else {}),
         }
         for name, (src, tpu, key) in sources.items()
     ]}))

@@ -217,6 +217,26 @@ def random_scene_arrays(n: int = 64, seed: int = 0, max_sh_degree: int = 2, spre
     )
 
 
+def edge_scene_arrays(n: int = 3000, seed: int = 0, max_sh_degree: int = 3):
+    """Gaussians for `RANDOM_SCENE_VIEW` that reach every branch of the
+    preprocess: a tenth behind or at the near plane, a tenth far to the side
+    (past the EWA's 1.3 tan clamp), raw unnormalized quaternions, scales and
+    opacities from culled to large, SH coefficients of every degree."""
+    rng = np.random.RandomState(seed)
+    k = (max_sh_degree + 1) ** 2
+    xyz = rng.uniform(-1.5, 1.5, (n, 3))
+    xyz[: n // 10, 2] = rng.uniform(-5.5, -3.6, n // 10)
+    xyz[n // 10: n // 5, 0] = rng.uniform(-8.0, 8.0, n // 5 - n // 10)
+    return dict(
+        xyz=xyz.astype(np.float32),
+        feat_dc=(rng.randn(n, 1, 3) * 0.5).astype(np.float32),
+        feat_rest=(rng.randn(n, k - 1, 3) * 0.3).astype(np.float32),
+        log_scale=rng.uniform(-3.5, -1.0, (n, 3)).astype(np.float32),
+        quat=rng.randn(n, 4).astype(np.float32),
+        logit_opacity=rng.uniform(-3.0, 3.0, (n, 1)).astype(np.float32),
+    )
+
+
 def saturation_scene_arrays(n: int = 64, seed: int = 11):
     """Near-opaque overlapping Gaussians: tiles saturate early and tiny
     per-tile runs share chunk boundaries."""

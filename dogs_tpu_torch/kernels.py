@@ -25,11 +25,14 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-KERNELS = ("blend_forward", "blend_backward", "segment_sum")
+KERNELS = ("blend_forward", "blend_backward", "segment_sum", "preprocess")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
+# Flags of one source beyond NVCC_FLAGS: the preprocess rounds each multiply
+# and add on its own, as the plain PyTorch version's separate operations do.
+EXTRA_FLAGS = {"preprocess": ("-fmad=false",)}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,7 +44,7 @@ class Built:
 
 def sources_digest() -> str:
     """Hash of every file under csrc/ and of the nvcc flags."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode() + repr(sorted(EXTRA_FLAGS.items())).encode())
     for path in sorted(CSRC.iterdir()):
         if path.suffix in (".cu", ".cuh"):
             h.update(path.name.encode())
@@ -70,7 +73,7 @@ def build_all() -> dict[str, Built]:
         for name in missing:
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
             os.close(fd)
-            cmd = [str(nvcc), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+            cmd = [str(nvcc), *NVCC_FLAGS, *EXTRA_FLAGS.get(name, ()), "-o", tmp, str(CSRC / f"{name}.cu")]
             procs[name] = (tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
             ))

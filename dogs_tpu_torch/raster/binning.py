@@ -153,6 +153,9 @@ def build_tile_bins(
     jy = j // bwg
     tix = sx0[gid] + (j - jy * bwg)
     tiy = sy0[gid] + jy
+    # Three (candidates,) int64 temporaries freed before the cull, whose own
+    # temporaries set the render's peak memory.
+    del first, j, bwg, jy
     if tile_culling:
         keep = _cull(
             tix, tiy, proj.means2d[gid, 0], proj.means2d[gid, 1],

@@ -3,8 +3,11 @@
 Port of dogs_tpu/raster/projection.py (the reference CUDA `preprocessCUDA`,
 forward.cu:157-276): frustum cull, 3D covariance from quat/scale, EWA
 projection with the 0.3 px low-pass and the optional antialiasing opacity
-rescale, conic, 3-sigma radius, and SH -> RGB. Plain elementwise torch over
-all (padded) Gaussians; no matmul, so no TF32 setting can reach it.
+rescale, conic, 3-sigma radius, and SH -> RGB; then the blend's entry
+matrix (`entry_matrix`). Plain elementwise torch over all (padded)
+Gaussians; no matmul, so no TF32 setting can reach it. On CUDA tensors
+`render_tiled` runs the same map as one hand-written kernel pair
+(raster/preprocess.py), of which these are the plain version.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from dogs_tpu_torch.core.camera import Camera
 from dogs_tpu_torch.core.gaussians import GaussianParams, NeuralGaussians
 from dogs_tpu_torch.core.sh import eval_sh
 from dogs_tpu_torch.core.transforms import covariance_sym6
+from dogs_tpu_torch.raster import blend
 
 LOW_PASS_FILTER = 0.3
 NEAR_PLANE = 0.2
@@ -151,6 +155,32 @@ def project_gaussians(
 
     return ProjectedGaussians(
         means2d=means2d, depth=z, conic=conic, color=color, opacity=opacity, radius=radius
+    )
+
+
+def entry_matrix(proj: ProjectedGaussians, invd_offset: torch.Tensor | None = None) -> torch.Tensor:
+    """The blend's (N, 16) entry matrix in Gaussian order (blend.ENT_*
+    columns), as dogs_tpu/raster/tiled.py:619-643 builds it. The depth column
+    (read only by the backward's depth damping) carries no gradient, as
+    there (`stop_gradient(dsafe)`); the inverse depth does."""
+    visible = proj.radius > 0.0
+    zero = torch.zeros((), device=proj.depth.device)
+    opacity = torch.where(visible, proj.opacity, zero)
+    dsafe = torch.where(visible, proj.depth, torch.ones_like(zero))
+    invd = torch.where(visible, 1.0 / dsafe, zero)
+    if invd_offset is not None:
+        invd = invd + invd_offset
+    return torch.cat(
+        [
+            proj.means2d,
+            proj.conic,
+            proj.color,
+            opacity[:, None],
+            invd[:, None],
+            dsafe.detach()[:, None],
+            torch.zeros((dsafe.shape[0], blend.ENT_WIDTH - 11), device=dsafe.device),
+        ],
+        dim=1,
     )
 
 

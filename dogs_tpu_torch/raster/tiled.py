@@ -2,16 +2,18 @@
 
 Port of dogs_tpu/raster/tiled.py:render_tiled: project -> bin -> build the
 N-space entry matrix -> blend its rows in sorted order -> composite the
-background -> untile and crop. The blend is one `torch.autograd.Function`
-(`_TileBlend`) that reads the N-space matrix through the sorted entry ids
-(the kernels gather rows themselves; no sorted (K, 16) copy is made), and
-whose backward is the blend backward plus the K -> N reduce (a segment sum
-over runs read through binning's key-sort permutation; no id sort). The
-blends and the segment sum are hand-written Hopper kernels
-(raster/blend.py, raster/reduce.py) for CUDA tensors and their plain
-PyTorch versions for CPU tensors. There is no fallback between them: a
-kernel that fails to build or launch raises. Projection's gradient is torch
-autograd.
+background -> untile and crop. On CUDA tensors with `cfg.use_kernel`,
+projection, SH and the entry matrix are one hand-written kernel and their
+gradient another (raster/preprocess.py); otherwise they are
+`project_gaussians` + `entry_matrix` and torch autograd. The blend is one
+`torch.autograd.Function` (`_TileBlend`) that reads the N-space matrix
+through the sorted entry ids (the kernels gather rows themselves; no sorted
+(K, 16) copy is made), and whose backward is the blend backward plus the
+K -> N reduce (a segment sum over runs read through binning's key-sort
+permutation; no id sort). The blends and the segment sum are hand-written
+Hopper kernels (raster/blend.py, raster/reduce.py) for CUDA tensors and
+their plain PyTorch versions for CPU tensors. There is no fallback between
+them: a kernel that fails to build or launch raises.
 """
 
 from __future__ import annotations
@@ -22,9 +24,9 @@ import torch
 
 from dogs_tpu_torch.core.camera import Camera
 from dogs_tpu_torch.core.gaussians import GaussianParams, NeuralGaussians
-from dogs_tpu_torch.raster import blend, reduce
+from dogs_tpu_torch.raster import blend, preprocess, reduce
 from dogs_tpu_torch.raster.binning import build_tile_bins
-from dogs_tpu_torch.raster.projection import ProjectedGaussians, project_gaussians
+from dogs_tpu_torch.raster.projection import ProjectedGaussians, entry_matrix, project_gaussians
 from dogs_tpu_torch.utils import trace
 
 
@@ -68,32 +70,6 @@ class RenderOutput:
     bin_valid: int  # (gaussian, tile) entries blended
     bin_rect_truncated: int  # gaussians whose tile rect was clamped
     bin_dropped: int = 0  # ragged binning drops nothing past the clamp
-
-
-def entry_matrix(proj: ProjectedGaussians, invd_offset: torch.Tensor | None = None) -> torch.Tensor:
-    """The blend's (N, 16) entry matrix in Gaussian order (blend.ENT_*
-    columns), as dogs_tpu/raster/tiled.py:619-643 builds it. The depth column
-    (read only by the backward's depth damping) carries no gradient, as
-    there (`stop_gradient(dsafe)`); the inverse depth does."""
-    visible = proj.radius > 0.0
-    zero = torch.zeros((), device=proj.depth.device)
-    opacity = torch.where(visible, proj.opacity, zero)
-    dsafe = torch.where(visible, proj.depth, torch.ones_like(zero))
-    invd = torch.where(visible, 1.0 / dsafe, zero)
-    if invd_offset is not None:
-        invd = invd + invd_offset
-    return torch.cat(
-        [
-            proj.means2d,
-            proj.conic,
-            proj.color,
-            opacity[:, None],
-            invd[:, None],
-            dsafe.detach()[:, None],
-            torch.zeros((dsafe.shape[0], blend.ENT_WIDTH - 11), device=dsafe.device),
-        ],
-        dim=1,
-    )
 
 
 class _TileBlend(torch.autograd.Function):
@@ -163,6 +139,17 @@ def _detached(proj: ProjectedGaussians) -> ProjectedGaussians:
     )
 
 
+def _entry_fields(ent_n: torch.Tensor, radius: torch.Tensor) -> ProjectedGaussians:
+    """The fields binning reads, as column views of the preprocess kernel's
+    entry matrix. Opacity is zero and depth one on culled slots, which
+    binning never reads (it expands only slots with radius > 0)."""
+    return ProjectedGaussians(
+        means2d=ent_n[:, blend.ENT_MUX:blend.ENT_MUY + 1], depth=ent_n[:, blend.ENT_DEPTH],
+        conic=ent_n[:, blend.ENT_CA:blend.ENT_CC + 1], color=ent_n[:, blend.ENT_R:blend.ENT_B + 1],
+        opacity=ent_n[:, blend.ENT_OPA], radius=radius,
+    )
+
+
 def render_tiled(
     params: GaussianParams | NeuralGaussians,
     camera: Camera,
@@ -189,20 +176,18 @@ def render_tiled(
     device = params.xyz.device
     if background is None:
         background = torch.zeros((3,), dtype=torch.float32, device=device)
-    if device.type == "cuda" and cfg.use_kernel and ts != blend.TILE:
+    use_kernel = device.type == "cuda" and cfg.use_kernel
+    if use_kernel and ts != blend.TILE:
         raise ValueError(f"the blend kernels are built for {blend.TILE}px tiles, not {ts}")
 
+    kw = dict(alive=alive, active_sh_degree=active_sh_degree, antialiasing=cfg.antialiasing,
+              scale_modifier=scale_modifier, means2d_offset=means2d_offset, color_override=color_override)
     with trace.span("dogs.raster.project"):
-        proj = project_gaussians(
-            params,
-            camera,
-            alive=alive,
-            active_sh_degree=active_sh_degree,
-            antialiasing=cfg.antialiasing,
-            scale_modifier=scale_modifier,
-            means2d_offset=means2d_offset,
-            color_override=color_override,
-        )
+        if use_kernel:
+            ent_n, radius = preprocess.preprocess(params, camera, invd_offset=invd_offset, **kw)
+            proj = _entry_fields(ent_n, radius)
+        else:
+            proj = project_gaussians(params, camera, **kw)
     # Binning's outputs are integers: it runs on detached fields, so no
     # K-sized autograd graph is recorded for it.
     with trace.span("dogs.raster.bin"):
@@ -212,8 +197,9 @@ def render_tiled(
             max_tiles_per_gaussian=cfg.max_tiles_per_gaussian,
             tile_culling=cfg.tile_culling,
         )
-    with trace.span("dogs.raster.entries"):
-        ent_n = entry_matrix(proj, invd_offset)
+    if not use_kernel:
+        with trace.span("dogs.raster.entries"):
+            ent_n = entry_matrix(proj, invd_offset)
     img, aa, dd = _TileBlend.apply(
         ent_n, background, bins.sorted_idx, bins.tile_starts, bins.order, (n_tiles_y, n_tiles_x, w, h), cfg,
     )

@@ -27,10 +27,12 @@ The spans, outermost first:
   `dogs.step.render`, `dogs.step.loss`, `dogs.step.backward`,
   `dogs.step.adam` and `dogs.step.stats`;
 - `dogs.eval.render`: one `GaussianSplatEvaluator.render`;
-- in `render_tiled`: `dogs.raster.project`, `dogs.raster.bin`,
-  `dogs.raster.entries`, `dogs.raster.blend_fwd` (K1), and in the
-  backward, on autograd's thread, `dogs.raster.blend_bwd` (K2) and
-  `dogs.raster.reduce` (K3);
+- in `render_tiled`: `dogs.raster.project` (on the card the preprocess
+  forward kernel, which writes the entry matrix too), `dogs.raster.bin`,
+  `dogs.raster.entries` (the plain path's entry matrix),
+  `dogs.raster.blend_fwd` (K1), and in the backward, on autograd's thread,
+  `dogs.raster.blend_bwd` (K2), `dogs.raster.reduce` (K3) and
+  `dogs.raster.project_bwd` (the preprocess backward kernel);
 - `dogs.sync.<site>`: binning's `bin_expand`, `bin_cull`, `bin_truncated`,
   the scale regularizer's backward (`scale_reg_backward`: `torch.prod`'s
   VJP reads back its count of zeros), and the blocking copies and reads of

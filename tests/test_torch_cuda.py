@@ -1,7 +1,7 @@
 """CUDA lane: the hand-written kernels (blend forward, blend backward,
-segment sum) against their plain PyTorch versions on the card, the
-LightGaussian importance render and the Scaffold-GS render and step through
-them, and the densify surgery, LPIPS, the windowed KNN, the appearance mask
+segment sum, the preprocess pair) against their plain PyTorch versions on
+the card, the LightGaussian importance render and the Scaffold-GS render
+and step through them, and the densify surgery, LPIPS, the windowed KNN, the appearance mask
 CNN and the Scaffold-GS decode on the card against the CPU. The kernel
 scenes include a coarse-to-fine frame with a partial tile row. Every test here needs a CUDA
 device and skips without one. The file imports no JAX, so it runs on a machine with the card alone:
@@ -25,14 +25,22 @@ from dogs_tpu_torch.eval.metrics import lpips
 from dogs_tpu_torch.fields import appearance
 from dogs_tpu_torch.fields import lightgaussian
 from dogs_tpu_torch.fields import model as tmodel
-from dogs_tpu_torch.raster import blend, reduce
+from dogs_tpu_torch.raster import blend, preprocess, reduce
 from dogs_tpu_torch.raster.binning import build_tile_bins
 from dogs_tpu_torch.raster.projection import project_gaussians
 from dogs_tpu_torch.raster.tiled import RasterConfig, entry_matrix, render_tiled
 from dogs_tpu_torch.train import trainer as ttrainer
 from dogs_tpu_torch.train.optim import SparseAdamState
+# By its file's name: pytest puts tests/ on the path, and the card's machine
+# may hold another top-level `tests` package.
+from test_torch_preprocess import CASES as PRE_CASES
+from test_torch_preprocess import GRAD_TOL as PRE_GRAD_TOL
+from test_torch_preprocess import case_inputs, cotangent
 
 pytestmark = pytest.mark.cuda
+# Every hand-written kernel's wrapper, each with its launch count.
+ALL_KERNELS = (blend.blend_forward, blend.blend_backward, reduce.sorted_segment_sum,
+               preprocess.preprocess_forward, preprocess.preprocess_backward)
 ATOL = 3e-4  # forward parity bar of tests/test_pallas_blend.py
 GRAD_ATOL = 2e-3  # max-normalized gradient bar of tests/test_pallas_blend.py:58-61
 MT = 36
@@ -124,13 +132,15 @@ def test_render_uses_kernel_on_card(cuda):
     params = params_from_numpy(make(), cuda)
     cam = look_at_camera(**view, device=cuda)
     bg = torch.tensor([0.15, 0.25, 0.35], device=cuda)
-    before = blend.blend_forward.launches
+    kernels_ = (blend.blend_forward, preprocess.preprocess_forward)
+    before = [fn.launches for fn in kernels_]
     got = render_tiled(params, cam, RasterConfig(max_tiles_per_gaussian=MT), background=bg,
                        active_sh_degree=deg)
-    assert blend.blend_forward.launches == before + 1
+    assert [fn.launches for fn in kernels_] == [n + 1 for n in before]
     want = render_tiled(params, cam, RasterConfig(max_tiles_per_gaussian=MT, use_kernel=False),
                         background=bg, active_sh_degree=deg)
-    assert blend.blend_forward.launches == before + 1
+    assert [fn.launches for fn in kernels_] == [n + 1 for n in before]
+    assert torch.equal(got.radii, want.radii)
     for f in ("image", "alpha", "invdepth"):
         torch.testing.assert_close(getattr(got, f), getattr(want, f), atol=ATOL, rtol=0)
 
@@ -228,19 +238,126 @@ def test_render_backward_goes_through_all_three_kernels(reduce_dtype, cuda):
         params = params_from_numpy(make(), cuda)
         bg = torch.tensor([0.1, 0.2, 0.3], device=cuda, requires_grad=True)
         cfg = RasterConfig(max_tiles_per_gaussian=MT, use_kernel=use_kernel, reduce_dtype=reduce_dtype)
-        counts = [blend.blend_forward.launches, blend.blend_backward.launches,
-                  reduce.sorted_segment_sum.launches]
+        counts = [fn.launches for fn in ALL_KERNELS]
         out = render_tiled(params, cam, cfg, background=bg, active_sh_degree=deg)
         loss = ((out.image - target) ** 2).sum() + 0.3 * (out.alpha**2).sum() + 0.1 * (out.invdepth**2).sum()
         leaves = [getattr(params, k) for k in PARAM_NAMES] + [bg]
         grads[use_kernel] = torch.autograd.grad(loss, leaves)
         torch.cuda.synchronize()
-        after = [blend.blend_forward.launches, blend.blend_backward.launches,
-                 reduce.sorted_segment_sum.launches]
-        assert [a - b for a, b in zip(after, counts)] == ([1, 1, 1] if use_kernel else [0, 0, 0])
+        after = [fn.launches for fn in ALL_KERNELS]
+        assert [a - b for a, b in zip(after, counts)] == [int(use_kernel)] * len(ALL_KERNELS)
     for name, a, b in zip(PARAM_NAMES + ("background",), grads[False], grads[True]):
         scale = float(a.abs().max()) + 1e-6
         torch.testing.assert_close(b / scale, a / scale, atol=GRAD_ATOL, rtol=0, msg=lambda m: f"{name}: {m}")
+
+
+def assert_preprocess_forward_close(got, want):
+    """The kernel's entry matrix and radii against the plain version's: at
+    most one slot in a thousand a pixel off in radius (a ceil at a rounding
+    edge: the norms' reductions sum in another order), every column within
+    1e-5 of its largest value."""
+    (ent, radius), (want_ent, want_radius) = got, want
+    off = radius != want_radius
+    assert int(off.sum()) <= radius.numel() // 1000 and float((radius - want_radius).abs().max()) <= 1.0
+    assert 0 < int((want_radius > 0).sum()) < radius.numel()
+    for c in range(blend.ENT_WIDTH):
+        scale = float(want_ent[~off, c].abs().max())
+        torch.testing.assert_close(ent[~off, c], want_ent[~off, c], rtol=1e-5, atol=1e-5 * scale,
+                                   msg=lambda m: f"column {c}: {m}")
+
+
+@pytest.mark.parametrize("case", list(PRE_CASES))
+def test_preprocess_forward_kernel_matches_plain(case, cuda):
+    """SH 0-4, antialiasing, the scale modifier, alive, both offsets and a
+    colour override, on slots behind the near plane and past the EWA clamp."""
+    x = case_inputs(case, cuda)
+    before = preprocess.preprocess_forward.launches
+    with torch.no_grad():
+        got = preprocess.preprocess_forward(x)
+        want = preprocess.preprocess_forward_reference(x)
+    torch.cuda.synchronize()
+    assert preprocess.preprocess_forward.launches == before + 1
+    assert_preprocess_forward_close(got, want)
+
+
+def assert_preprocess_backward(x, radius, needs, seed):
+    """The backward kernel's gradients against autograd through the plain
+    forward, and bit for bit over two launches."""
+    d_ent = cotangent(radius, seed)
+    before = preprocess.preprocess_backward.launches
+    got = preprocess.preprocess_backward(x, d_ent, radius, needs)
+    again = preprocess.preprocess_backward(x, d_ent, radius, needs)
+    want = preprocess.preprocess_backward_reference(x, d_ent, radius, needs)
+    torch.cuda.synchronize()
+    assert preprocess.preprocess_backward.launches == before + 2
+    for name, a, b, w in zip(preprocess.GRAD_NAMES, got, again, want):
+        assert (a is None) == (w is None), name
+        if a is not None:
+            assert torch.equal(a, b), f"{name}: two launches differ"
+            scale = float(w.abs().max())
+            torch.testing.assert_close(a, w, rtol=0, atol=PRE_GRAD_TOL * scale + 1e-30,
+                                       msg=lambda m: f"{name}: {m}")
+    return got
+
+
+@pytest.mark.parametrize("case", list(PRE_CASES))
+def test_preprocess_backward_kernel_matches_autograd_and_is_deterministic(case, cuda):
+    """Every leaf's and offset's gradient, and the camera's R and t (pose
+    refinement: per-block partials summed in a fixed order)."""
+    x = case_inputs(case, cuda)
+    with torch.no_grad():
+        _, radius = preprocess.preprocess_forward(x)
+    needs = [x.tensor(k) is not None for k in preprocess.GRAD_NAMES]
+    got = dict(zip(preprocess.GRAD_NAMES, assert_preprocess_backward(x, radius, needs, seed=1)))
+    assert got["R"] is not None and got["t"] is not None
+    culled = radius == 0
+    assert not got["xyz"][culled].any() and not got["quat"][culled].any()
+
+
+def test_preprocess_backward_at_a_million_slots_is_deterministic(cuda):
+    """Many blocks of camera partials: ~7,800 rows summed in a fixed order."""
+    x = case_inputs("sh3_alive_offsets", cuda, n=1_000_000)
+    with torch.no_grad():
+        _, radius = preprocess.preprocess_forward(x)
+    needs = [x.tensor(k) is not None for k in preprocess.GRAD_NAMES]
+    assert_preprocess_backward(x, radius, needs, seed=5)
+
+
+def test_preprocess_kernels_on_a_scaffold_decode(scaffold_trainer):
+    """The colour-override variant on Scaffold-GS's decoded Gaussians at
+    bench shapes (non-contiguous quaternions, SH rest rows of width 0)."""
+    from dogs_tpu_torch.fields import scaffold
+
+    tr = scaffold_trainer
+    cam = tr.cameras[0]
+    with torch.no_grad():
+        gauss, colors, neural_alive = scaffold.generate_neural_gaussians(tr.state.params, cam, alive=tr.state.alive)
+    n = colors.shape[0]
+    x = preprocess.Inputs(gauss.xyz, gauss.log_scale, gauss.quat, gauss.logit_opacity, gauss.feat_dc,
+                          gauss.feat_rest, colors, torch.zeros((n, 2), device=tr.device), None, cam,
+                          alive=neural_alive, degree=0)
+    with torch.no_grad():
+        got = preprocess.preprocess_forward(x)
+        want = preprocess.preprocess_forward_reference(x)
+    assert_preprocess_forward_close(got, want)
+    needs = [k in ("xyz", "log_scale", "quat", "logit_opacity", "color_override", "means2d_offset")
+             for k in preprocess.GRAD_NAMES]
+    assert_preprocess_backward(x, got[1], needs, seed=2)
+
+
+def test_train_step_launches_each_kernel_once(cuda):
+    """A 3DGS step (make_train_step, SH 2, the densify offset) launches the
+    preprocess forward, K1, K2, K3 and the preprocess backward once each."""
+    scene = synthetic.make_scene(n_gaussians=64, n_cams=2, width=64, height=48, seed=0, device=cuda)
+    cfg = ttrainer.TrainerConfig(max_sh_degree=2, min_capacity=128)
+    ts = ttrainer.init_train_state(scene.points, scene.colors, len(scene.cameras), cfg, cuda)
+    step = ttrainer.make_train_step(cfg, RasterConfig(), 1.0, 2, (0.0, 0.0, 0.0))
+    step(ts, scene.cameras[0], scene.images[0])
+    counts = [fn.launches for fn in ALL_KERNELS]
+    _, metrics = step(ts, scene.cameras[1], scene.images[1])
+    torch.cuda.synchronize()
+    assert [fn.launches - n for fn, n in zip(ALL_KERNELS, counts)] == [1] * len(ALL_KERNELS)
+    assert np.isfinite(float(metrics["loss"]))
 
 
 def densify_inputs(device):
@@ -293,20 +410,21 @@ def test_densify_surgery_on_card_matches_cpu_without_host_sync(cuda):
 
 
 def test_importance_render_goes_through_the_kernels_and_matches_plain(cuda):
-    """One VJP through the invD column: K1 forward, K2 and K3 backward, once
-    each; within the gradient bar of the plain path."""
+    """One VJP through the invD column: the preprocess forward and K1, then
+    K2, K3 and the preprocess backward (asked for the offset's gradient
+    alone), once each; within the gradient bar of the plain path."""
     make, view, deg = SCENES["random_seed0"]
     arrays = make()
     alive = torch.as_tensor(np.random.RandomState(3).rand(arrays["xyz"].shape[0]) > 0.2, device=cuda)
     model = tmodel.GaussianModelState(params_from_numpy(arrays, cuda), alive,
                                       *tmodel.fresh_stats(arrays["xyz"].shape[0], cuda))
     cam = look_at_camera(**view, device=cuda)
-    counts = [blend.blend_forward.launches, blend.blend_backward.launches, reduce.sorted_segment_sum.launches]
+    counts = [fn.launches for fn in ALL_KERNELS]
     got = lightgaussian.importance_render(model, cam, RasterConfig(max_tiles_per_gaussian=MT), deg)
-    after = [blend.blend_forward.launches, blend.blend_backward.launches, reduce.sorted_segment_sum.launches]
+    after = [fn.launches for fn in ALL_KERNELS]
     want = lightgaussian.importance_render(model, cam, RasterConfig(max_tiles_per_gaussian=MT, use_kernel=False), deg)
     torch.cuda.synchronize()
-    assert [a - b for a, b in zip(after, counts)] == [1, 1, 1]
+    assert [a - b for a, b in zip(after, counts)] == [1] * len(ALL_KERNELS)
     scale = float(want.abs().max())
     assert scale > 0 and not got[~alive].any()
     torch.testing.assert_close(got / scale, want / scale, atol=GRAD_ATOL, rtol=0)
@@ -429,11 +547,10 @@ def test_scaffold_train_step_at_bench_shapes(scaffold_trainer):
     anchor_feat moved, each kernel launched once."""
     tr = scaffold_trainer
     before = tr.state.params.anchor_feat.detach().clone()
-    launches = [fn.launches for fn in (blend.blend_forward, blend.blend_backward, reduce.sorted_segment_sum)]
+    launches = [fn.launches for fn in ALL_KERNELS]
     m = tr.train_iteration(tr.state.step + 1)
     assert np.isfinite(float(m["loss"])) and m["bin_dropped"] == 0 and m["bin_pool_truncated"] == 0
-    assert [fn.launches for fn in (blend.blend_forward, blend.blend_backward,
-                                   reduce.sorted_segment_sum)] == [n + 1 for n in launches]
+    assert [fn.launches for fn in ALL_KERNELS] == [n + 1 for n in launches]
     assert float((tr.state.params.anchor_feat.detach() - before).abs().max()) > 0
 
 
