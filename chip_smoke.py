@@ -2645,7 +2645,7 @@ def main() -> int:
             return obj
 
         MT = master_mod.MasterTrainer
-        originals_6g = (MT.train_step, MT.consensus, MT.fuse_and_enable_admm, MT._densify_blocks)
+        originals_6g = (MT._step_blocks, MT._consensus, MT._fuse, MT._densify_blocks)
         alog: dict = dict(steps=[], rounds=[], events=[])
         records_6g: list[logging.LogRecord] = []
         catcher_6g = logging.Handler(logging.INFO)
@@ -2700,7 +2700,7 @@ def main() -> int:
             originals_6g[3](self)
             alog["events"].append((self.step, list(self._last_overflow)))
 
-        MT.train_step, MT.consensus, MT.fuse_and_enable_admm, MT._densify_blocks = (
+        MT._step_blocks, MT._consensus, MT._fuse, MT._densify_blocks = (
             admm_step, admm_consensus, admm_fusion, admm_densify)
         master_log.addHandler(catcher_6g)
         master_log.setLevel(logging.INFO)
@@ -2715,7 +2715,7 @@ def main() -> int:
             admm_counts = add_counts("admm", list(counted))
             admm_peak_mb = max(torch.cuda.max_memory_allocated(dev), alog["fusion"]["peak_before"]) / 2**20
         finally:
-            MT.train_step, MT.consensus, MT.fuse_and_enable_admm, MT._densify_blocks = originals_6g
+            MT._step_blocks, MT._consensus, MT._fuse, MT._densify_blocks = originals_6g
             master_log.removeHandler(catcher_6g)
             master_log.setLevel(level_6g)
         am, fusion, rounds = alog["master"], alog["fusion"], alog["rounds"]
@@ -2988,7 +2988,7 @@ def main() -> int:
                                       torch.stack([m["loss"].to(dev) for m in out])))
             return out
 
-        MT.train_step = c2f_master_step
+        MT._step_blocks = c2f_master_step
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         reset_counts()
@@ -3000,7 +3000,7 @@ def main() -> int:
             add_counts("c2f admm", list(counted))
             c2f_admm_peak_mb = max(torch.cuda.max_memory_allocated(dev), c2f_admm["peak_before"]) / 2**20
         finally:
-            MT.train_step = originals_6g[0]
+            MT._step_blocks = originals_6g[0]
         cm = c2f_admm.pop("master")
         want_res = [schedule.training_resolution(cm.cfg, s) for s in range(1, C2F_ADMM_STEPS + 1)]
         check([s for s, *_ in c2f_admm["steps"]] == list(range(1, C2F_ADMM_STEPS + 1))

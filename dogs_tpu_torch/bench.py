@@ -493,8 +493,8 @@ def bench_admm(stream: bool = False, gt_f32: bool = False, n: int = N_GAUSSIANS,
                height: int = HEIGHT, warm_intervals: int = 2, timed_intervals: int = 2,
                consensus_interval: int = 200, device: torch.device | str = "cuda") -> list[dict]:
     """bench.py's `bench_admm`: `MasterTrainer` with one block holding the
-    500k bench params in its ADMM phase (`admm_state_from_params`: the
-    capacity rounds up, `alive` covers exactly n), the headline's render
+    500k bench params in its ADMM phase (`start_admm`: the capacity rounds
+    up, `alive` covers exactly n), the headline's render
     workload (bench model, 8 cameras, random GT from seed 1, max_tiles 12),
     a consensus round every 200 steps; 2 warm-up and 2 timed intervals.
     `stream`: the GT streams through the cache (gt_resident=False);
@@ -517,12 +517,8 @@ def bench_admm(stream: bool = False, gt_f32: bool = False, n: int = N_GAUSSIANS,
     master = MasterTrainer(partition, [arrays["xyz"][:1024]], [np.full((1024, 3), 0.5, np.float32)], [cams], [gts],
                            cfg, RasterConfig(max_tiles_per_gaussian=MAX_TILES), admm_cfg, spatial_lr_scale=5.0,
                            device=device)
-    master.blocks = admm_state_from_params(arrays, [np.arange(n, dtype=np.int32)], len(cams), cfg, 0,
-                                           master.devices)
+    master.start_admm(arrays, [np.arange(n, dtype=np.int32)], step=0)
     del arrays
-    master.n_global = n
-    master.admm_enabled = True
-    master.set_rho(admm_cfg.initial_rho(n))
     mode = "stream" if stream else "resident"
     metric = f"admm_1block_{n // 1000}k_{width}x{height}_chained_step_{mode}_{gt_dtype}"
     losses = [master.train_iteration()["loss"] for _ in range(warm_intervals)]

@@ -4,23 +4,33 @@ and the residual-balancing rho.
 Port of dogs_tpu/parallel/admm.py (the reference's master_gaussian_trainer.py
 :201-786 + slave_gaussian_trainer.py:15-263). dogs_tpu runs the blocks as one
 SPMD program over a mesh with a "block" axis: a shard_mapped train step and
-a consensus step whose `psum` sums the blocks. The port keeps that shape in
-one process with no mesh: a list of `AdmmBlockState`s, one per block, each
-on its own device (round robin over the CUDA devices, all on one card when
-there is one).
+a consensus step whose `psum` sums the blocks. The port keeps a list of
+`AdmmBlockState`s, one per block, on the devices of one or more ranks (one
+process each, parallel/ranks.py; every block on one device when there is
+one rank).
 
   * A block trains with `make_train_step(admm=True)`, the single-device step
     plus the scaled-dual penalty sum_p 0.5 rho_p mean_alive((x + u - z)^2).
     `block_metrics` averages the blocks' metrics where dogs_tpu `pmean`s them.
-  * `consensus_round` is the reduction the `psum` did: each block's alive
-    rows go to the global rows its `slot_map` names, summed in block order
-    0..B-1 into one (G+1, ...) buffer on block 0's device (row G takes the
-    private and padded slots), then z = sum / max(count, 1), the gather back
-    to block slots, the over-relaxed dual update u += (1 + alpha)(x - z) and
-    the primal and dual residuals. Within a block the alive slots name
-    distinct global rows, so each block's scatter has unique targets and the
-    sums do not depend on the order of a device's atomics: the round is
-    deterministic on the card.
+  * `consensus_round_shared` is the round the master runs: only the SHARED
+    rows, the global rows that two or more blocks hold (`shared_rows`,
+    numbered at the fusion), are averaged. Each rank adds its blocks'
+    alive shared rows into one (S, 60) buffer (59 parameter columns and the
+    count), one `all_reduce` sums the ranks' buffers, and z = sum /
+    max(count, 1) goes back to the slots. A row that one block holds takes
+    z = x with no communication, which is what the dense average gives it.
+    Then the over-relaxed dual update u += (1 + alpha)(x - z) and the
+    primal and dual residuals: their twelve sums are all-reduced too and
+    read to the host once, so every rank adapts rho from the same float32
+    values.
+  * `consensus_round` is the dense form of the same round, the reduction
+    the `psum` did: each block's alive rows go to the global rows its
+    `slot_map` names, summed in block order 0..B-1 into one (G+1, ...)
+    buffer (row G takes the private and padded slots). bench.py times it
+    and the tests hold both forms and dogs_tpu's against each other: equal
+    on the alive rows up to float32 summation order. Within a block the
+    alive slots name distinct global rows, so each block's scatter has
+    unique targets and both rounds are deterministic on the card.
   * `adapt_rho` (master:336-377) runs on the host in float32, as dogs_tpu
     holds rho.
 
@@ -37,7 +47,8 @@ import torch
 
 from dogs_tpu_torch.core.gaussians import PARAM_NAMES, GaussianParams, round_up_capacity
 from dogs_tpu_torch.fields.model import GaussianModelState, fresh_stats
-from dogs_tpu_torch.train.trainer import TrainerConfig, TrainState, init_train_state, train_state_from_model
+from dogs_tpu_torch.train.trainer import TrainerConfig, TrainState, train_state_from_model
+from dogs_tpu_torch.utils import trace
 
 # The per-property penalty weights of AdmmConfig, in PARAM_NAMES order.
 ALPHA_FIELDS = ("alpha_xyz", "alpha_fdc", "alpha_fr", "alpha_s", "alpha_q", "alpha_o")
@@ -117,23 +128,28 @@ def _with_duals(states: list[TrainState], block_ids: list[np.ndarray], n_global:
     return out
 
 
-def build_admm_state(
-    global_points: np.ndarray,
-    global_colors: np.ndarray,
-    block_ids: list[np.ndarray],
+def block_state_from_rows(
+    rows: dict,
+    capacity: int,
     n_images_per_block: int,
     cfg: TrainerConfig,
-    devices: list[torch.device],
-    capacity: int | None = None,
-) -> list[AdmmBlockState]:
-    """The blocks of the phase-1 start (master:252-273, slave:81-97): block k
-    initialises from global_points[block_ids[k]] on devices[k]; all blocks
-    share one padded capacity."""
-    cap = capacity or round_up_capacity(max(len(ids) for ids in block_ids), cfg.min_capacity)
-    cfg = dataclasses.replace(cfg, min_capacity=cap)
-    states = [init_train_state(global_points[ids], global_colors[ids], n_images_per_block, cfg, dev)
-              for ids, dev in zip(block_ids, devices)]
-    return _with_duals(states, block_ids, len(global_points))
+    step: int,
+    device: torch.device | str = "cuda",
+) -> TrainState:
+    """One block of the ADMM phase (master.py:703-758): the parameters
+    `rows` (numpy arrays or tensors, keyed by PARAM_NAMES) in its first
+    slots and zeros past them up to `capacity`, fresh moments, densify
+    statistics and per-image state, the train step set to `step`."""
+    params = {}
+    for k in PARAM_NAMES:
+        a = torch.as_tensor(rows[k], device=device)
+        params[k] = torch.cat([a, a.new_zeros((capacity - a.shape[0],) + a.shape[1:])])
+    n = rows["xyz"].shape[0]
+    model = GaussianModelState(GaussianParams(**params), torch.arange(capacity, device=device) < n,
+                               *fresh_stats(capacity, device))
+    ts = train_state_from_model(model, n_images_per_block, cfg)
+    ts.step = step
+    return ts
 
 
 def admm_state_from_params(
@@ -144,39 +160,25 @@ def admm_state_from_params(
     step: int,
     devices: list[torch.device],
 ) -> list[AdmmBlockState]:
-    """The blocks of the ADMM phase (master.py:703-758): block k holds the
-    fused parameters fused[f][block_ids[k]] in its first slots and zeros past
-    them, with fresh moments, densify statistics and per-image state, the
-    train step set to `step`. dogs_tpu builds the state from the points
-    (`build_admm_state`, whose KNN scales it then overwrites) and transplants
-    the fused parameters; building it from them directly gives the same
-    state."""
+    """The blocks of the ADMM phase: block k holds the fused parameters
+    fused[f][block_ids[k]] (`block_state_from_rows`), all blocks at one
+    capacity. dogs_tpu builds the state from the points (whose KNN scales
+    it then overwrites) and transplants the fused parameters; building it
+    from them directly gives the same state."""
     cap = round_up_capacity(max(len(ids) for ids in block_ids), cfg.min_capacity)
-    states = []
-    for ids, dev in zip(block_ids, devices):
-        rows = {}
-        for k in PARAM_NAMES:
-            a = np.zeros((cap,) + fused[k].shape[1:], np.float32)
-            a[: len(ids)] = fused[k][ids]
-            rows[k] = torch.as_tensor(a, device=dev)
-        model = GaussianModelState(
-            GaussianParams(**rows), torch.arange(cap, device=dev) < len(ids), *fresh_stats(cap, dev),
-        )
-        ts = train_state_from_model(model, n_images_per_block, cfg)
-        ts.step = step
-        states.append(ts)
+    states = [block_state_from_rows({k: fused[k][ids] for k in PARAM_NAMES}, cap, n_images_per_block, cfg, step, dev)
+              for ids, dev in zip(block_ids, devices)]
     return _with_duals(states, block_ids, len(fused["xyz"]))
 
 
-def block_metrics(per_block: list[dict]) -> dict[str, torch.Tensor]:
-    """One master step's metrics from its blocks' (0-d tensors): the mean
-    over blocks, except SUMMED_METRICS, summed (dogs_tpu pmeans the others
-    and psums these, admm.py:363-368). On block 0's device."""
-    dev = per_block[0]["loss"].device
+def block_metrics(per_block: list[dict]) -> dict[str, float]:
+    """One master step's metrics from its blocks' (numbers or 0-d tensors),
+    as floats: the mean over blocks, except SUMMED_METRICS, summed (dogs_tpu
+    pmeans the others and psums these, admm.py:363-368)."""
     out = {}
     for k in per_block[0]:
-        vals = torch.stack([torch.as_tensor(m[k], device=dev).to(torch.float32) for m in per_block])
-        out[k] = vals.sum() if k in SUMMED_METRICS else vals.mean()
+        vals = [float(m[k]) for m in per_block]
+        out[k] = float(np.sum(vals)) if k in SUMMED_METRICS else float(np.mean(vals))
     return out
 
 
@@ -280,6 +282,148 @@ def consensus_round(
              for b, x, zl, al in zip(blocks, params, z_new, alive)]
     primal, dual = block_residuals(params, z_new, [b.z_local for b in blocks], alive, rho)
     return new_u, z_new, z, counts, primal, dual
+
+
+# ---- the round over ranks: shared rows only ---------------------------------------
+
+def shared_rows(block_ids: list[np.ndarray], n_global: int, capacity: int) -> tuple[int, np.ndarray]:
+    """(S, (B, capacity) int32): the number of global rows that two or more
+    blocks hold, and each block slot's shared row (numbered in global-row
+    order), -1 where the slot's row is the block's alone or the slot pads."""
+    held = np.bincount(np.concatenate(block_ids).astype(np.int64), minlength=n_global) if block_ids else \
+        np.zeros((n_global,), np.int64)
+    shared = held >= 2
+    number = np.full((n_global,), -1, np.int32)
+    number[shared] = np.arange(int(shared.sum()), dtype=np.int32)
+    out = np.full((len(block_ids), capacity), -1, np.int32)
+    for k, ids in enumerate(block_ids):
+        out[k, : len(ids)] = number[ids]
+    return int(shared.sum()), out
+
+
+def flat_params(x) -> torch.Tensor:
+    """(C, F): a block's parameters (a GaussianParams or a dict keyed by
+    PARAM_NAMES) side by side in PARAM_NAMES order (F = 59 at SH degree 3)."""
+    get = x.get if isinstance(x, dict) else (lambda k: getattr(x, k))
+    return torch.cat([get(k).reshape(get(k).shape[0], -1) for k in PARAM_NAMES], 1)
+
+
+def unflat_params(flat: torch.Tensor, like: GaussianParams) -> dict[str, torch.Tensor]:
+    """The inverse of `flat_params`, shaped as `like`'s leaves."""
+    out, c = {}, 0
+    for k in PARAM_NAMES:
+        shape = getattr(like, k).shape
+        width = int(np.prod(shape[1:]))
+        out[k] = flat[:, c: c + width].reshape(shape)
+        c += width
+    return out
+
+
+@dataclasses.dataclass
+class SharedIndex:
+    """One block's view of the shared rows: `slots` (M,) int64, the block's
+    slots whose global row is shared; `rows` (M,) int64, their shared rows
+    (unique within the block)."""
+
+    slots: torch.Tensor
+    rows: torch.Tensor
+
+    @classmethod
+    def of(cls, shared_slot: np.ndarray, device: torch.device | str = "cuda") -> "SharedIndex":
+        slots = np.nonzero(shared_slot >= 0)[0]
+        return cls(torch.as_tensor(slots, dtype=torch.int64, device=device),
+                   torch.as_tensor(shared_slot[slots], dtype=torch.int64, device=device))
+
+
+@torch.no_grad()
+def shared_zsum(params: list[GaussianParams], alive: list[torch.Tensor], index: list[SharedIndex],
+                n_shared: int) -> torch.Tensor:
+    """(S, F + 1) on the first block's device: the blocks' alive shared
+    rows summed into their shared rows (the F parameter columns) with their
+    count (the last column); a dead slot adds zeros. Each block's rows are
+    unique, so the sums do not depend on the order of the device's
+    atomics."""
+    buf = None
+    for x, al, ix in zip(params, alive, index):
+        live = al[ix.slots].to(torch.float32)[:, None]
+        rows = torch.cat([flat_params(x)[ix.slots], torch.ones_like(live)], 1) * live
+        if buf is None:
+            buf = torch.zeros((n_shared, rows.shape[1]), dtype=torch.float32, device=alive[0].device)
+        buf.index_add_(0, ix.rows, rows)
+    return buf
+
+
+@torch.no_grad()
+def shared_z_local(x: GaussianParams, z_shared: torch.Tensor, ix: SharedIndex) -> dict[str, torch.Tensor]:
+    """A block's new z_local: its own parameters, with the shared rows'
+    average in the shared slots."""
+    z = flat_params(x).clone()
+    z[ix.slots] = z_shared[ix.rows]
+    return unflat_params(z, x)
+
+
+@torch.no_grad()
+def residual_sums(
+    x: list[GaussianParams],
+    z_local_new: list[dict[str, torch.Tensor]],
+    z_local_old: list[dict[str, torch.Tensor]],
+    alive: list[torch.Tensor],
+    rho: dict[str, torch.Tensor],
+) -> torch.Tensor:
+    """(12,) float32: per parameter, the blocks' sum of mean_alive((z - x)^2)
+    (the primal residual's terms), then their sum of rho_p
+    mean_alive((z_new - z_old)^2) (the dual's, before the mean over
+    blocks)."""
+    dev = alive[0].device
+    primal, dual = [], []
+    for k in PARAM_NAMES:
+        p = d = torch.zeros((), dtype=torch.float32, device=dev)
+        for xb, zn, zo, al in zip(x, z_local_new, z_local_old, alive):
+            p = p + _mse_alive(getattr(xb, k), zn[k], al)
+            d = d + rho[k] * _mse_alive(zn[k], zo[k], al)
+        primal.append(p)
+        dual.append(d)
+    return torch.stack(primal + dual)
+
+
+def consensus_round_shared(
+    blocks: list[AdmmBlockState],
+    index: list[SharedIndex],
+    n_shared: int,
+    n_blocks: int,
+    rho: dict[str, torch.Tensor],
+    cfg: AdmmConfig,
+    all_reduce=None,
+):
+    """One consensus round over this rank's `blocks` (of `n_blocks` in
+    all), whose sums `all_reduce(tensor)` completes across ranks in place
+    (None: this rank holds every block). Returns (new u per block, new
+    z_local per block, primal, dual), the residuals as float32 host dicts,
+    equal on every rank."""
+    params = [b.train.model.params for b in blocks]
+    alive = [b.train.model.alive for b in blocks]
+    reduce = all_reduce or (lambda t: t)
+    with trace.span("dogs.admm.consensus.zsum"):
+        buf = shared_zsum(params, alive, index, n_shared)
+    with trace.span("dogs.admm.consensus.allreduce"):
+        buf = reduce(buf)
+        trace.counter("admm.shared_rows", n_shared)
+        trace.counter("admm.allreduce_bytes", (buf.numel() + 2 * len(PARAM_NAMES)) * 4)
+    with trace.span("dogs.admm.consensus.dual"):
+        z_shared = buf[:, :-1] / torch.clamp(buf[:, -1:], min=1.0)
+        del buf
+        z_new = [shared_z_local(x, z_shared, ix) for x, ix in zip(params, index)]
+        del z_shared
+        new_u = [dual_update(b.u, x, zl, al, cfg.over_relaxation_coeff)
+                 for b, x, zl, al in zip(blocks, params, z_new, alive)]
+    with trace.span("dogs.admm.consensus.residuals"):
+        sums = reduce(residual_sums(params, z_new, [b.z_local for b in blocks], alive, rho))
+        with trace.readback("admm_residuals"):
+            vals = sums.cpu().numpy()
+    n = len(PARAM_NAMES)
+    primal = {k: np.float32(v) for k, v in zip(PARAM_NAMES, vals[:n])}
+    dual = {k: np.float32(v) / np.float32(n_blocks) for k, v in zip(PARAM_NAMES, vals[n:])}
+    return new_u, z_new, primal, dual
 
 
 def adapt_rho(

@@ -365,13 +365,14 @@ def make_train_step(
                 loss_scaling = torch.where(model.alive, vol, torch.zeros_like(vol)).sum() / n_alive
                 loss = loss + cfg.lambda_scale * loss_scaling
                 if admm:
-                    u, z_local, rho = admm_in
-                    for k in PARAM_NAMES:
-                        x = getattr(params, k)
-                        sq = torch.where(model.alive.view((-1,) + (1,) * (x.dim() - 1)),
-                                         (x + u[k].detach() - z_local[k].detach()) ** 2, 0.0)
-                        denom = torch.clamp(n_alive * float(np.prod(x.shape[1:])), min=1.0)
-                        loss = loss + 0.5 * rho[k] * sq.sum() / denom
+                    with trace.span("dogs.admm.penalty"):
+                        u, z_local, rho = admm_in
+                        for k in PARAM_NAMES:
+                            x = getattr(params, k)
+                            sq = torch.where(model.alive.view((-1,) + (1,) * (x.dim() - 1)),
+                                             (x + u[k].detach() - z_local[k].detach()) ** 2, 0.0)
+                            denom = torch.clamp(n_alive * float(np.prod(x.shape[1:])), min=1.0)
+                            loss = loss + 0.5 * rho[k] * sq.sum() / denom
             with trace.span("dogs.step.backward"):
                 leaves = [getattr(params, k) for k in PARAM_NAMES] + [offset]
                 grads = torch.autograd.grad(loss, leaves + list(extra.values()) + list(mask_leaves.values()))

@@ -8,7 +8,9 @@ conerf.trainers.master_gaussian_trainer`, master_gaussian_trainer.py:839-873).
 Expects the block manifests of `python -m dogs_tpu_torch.preprocess` (or of
 dogs_tpu's preprocess_large_scale_data.py) under
 <dataset.root_dir>/<scene>/blocks_{mx}x{my}/. One process drives the blocks
-(parallel/master.py): independent block training with densify, the fusion
+(parallel/master.py), or with trainer.distributed one process per card (per
+block on the CPU), block k on rank k mod R: independent block training with
+densify, the fusion
 with the post-merge prune at densify_end_iter, then ADMM consensus rounds
 every trainer.admm.consensus_interval steps. Checkpoints the whole block
 state every trainer.n_checkpoint steps and at the end, resumes from it with
@@ -16,7 +18,8 @@ trainer.resume or trainer.ckpt_path, validates the fused model every
 trainer.n_validation steps and at the end, and exports the fused model as
 .ply and .splat under <root_dir>/<expname>/export. The experiment is named
 as train_admm.py names it, ending in `_admm`. `device=cpu` runs on the CPU
-(the default is the card; blocks go round robin over the CUDA devices).
+(the default is the card; blocks go round robin over the CUDA devices, or
+over the ranks).
 """
 
 from __future__ import annotations
@@ -71,6 +74,7 @@ def train_scene(config, scene: str) -> dict:
         spatial_lr_scale=float(config.geometry.get("spatial_lr_scale", -1.0)),
         seed=int(config.get("seed", 42)),
         device=device,
+        distributed=bool(config.trainer.get("distributed", False)),
     )
     try:
         out_root = os.path.join(config.get("root_dir", "out"), config.get("expname", "exp"))

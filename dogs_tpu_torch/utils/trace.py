@@ -36,7 +36,18 @@ The spans, outermost first:
 - `dogs.sync.<site>`: binning's `bin_expand`, `bin_cull`, `bin_truncated`,
   the scale regularizer's backward (`scale_reg_backward`: `torch.prod`'s
   VJP reads back its count of zeros), and the blocking copies and reads of
-  the step, the render and the trainer loop.
+  the step, the render and the trainer loop;
+- the block trainer over ranks (parallel/master.py, parallel/admm.py):
+  `dogs.admm.command` (rank 0 sends one command to every worker),
+  `dogs.admm.fusion`, `dogs.admm.consensus` with `.zsum`, `.allreduce`,
+  `.dual` and `.residuals` inside, `dogs.admm.penalty` inside
+  `dogs.step.loss`, and the read of the round's residuals,
+  `dogs.sync.admm_residuals`.
+
+`counter(name, value)` marks a number of the program's in a profiler's
+trace as the empty span `dogs.count.<name>#<value>`: each consensus round
+over ranks marks `admm.shared_rows` (the rows that two or more blocks hold)
+and `admm.allreduce_bytes` (the bytes it all-reduces).
 """
 
 from __future__ import annotations
@@ -61,6 +72,13 @@ def span(name: str):
     if not _profiling():
         return _NULL
     return torch.profiler.record_function(name)
+
+
+def counter(name: str, value: float) -> None:
+    """The empty span `dogs.count.<name>#<value>` while a profiler runs."""
+    if _profiling():
+        with torch.profiler.record_function(f"{PREFIX}count.{name}#{value}"):
+            pass
 
 
 def readback(site: str):
