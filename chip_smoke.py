@@ -45,10 +45,16 @@ through the same three kernels) and the bench's modes, in phases:
               plain version at these shapes, and the blend's pairs counted by
               the plain path for the bounds; the preprocess kernel pair
               (projection + SH + the entry matrix, and its VJP) against its
-              plain version and timed beside its byte bound at 500k and 4M.
+              plain version and timed beside its byte bound at 500k and 4M;
+              the sparse Adam kernel at 4M, every row visible and at bench
+              camera 0's visibility, bit for bit the plain loop and timed
+              beside its byte bound and the plain loop; then a 4M step
+              (bench.py --scaling's largest) with each span's device time
+              over 8 profiled steps, dogs.step.adam among them.
               Every counted path's launches include the pair's: one
               forward a render and one backward a K2 launch, so a path that
-              skips or repeats the preprocess fails;
+              skips or repeats the preprocess fails; and exactly one sparse
+              Adam a make_train_step step (none where no 3DGS step runs);
   6b. host loop  GaussianSplatTrainer from points on a small scene, 30
               steps with densify at 10/20/30 and the opacity reset at 20 (val
               PSNR must rise before the reset, n_alive must change, train
@@ -272,6 +278,9 @@ GRAD_ATOL = 2e-3  # max-normalized, tests/test_pallas_blend.py:58-61
 # f32 outside the tensor cores, and HBM.
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+# A Gaussian's leaves at SH 3 past the row axis: 3 + 3 + 45 + 3 + 4 + 1 floats.
+ADAM_ROW_SHAPES = dict(xyz=(3,), feat_dc=(1, 3), feat_rest=(15, 3), log_scale=(3,), quat=(4,), logit_opacity=(1,))
+ADAM_ROW_FLOATS = 59
 # Flops per (pixel, entry) pair of the blends: every visited pair (dx, dy,
 # the quadratic form, min, exp, x opa, min, the 1/255 test) and on top per
 # contributing pair (forward: log1p, the log T add and test, exp, w, four
@@ -459,7 +468,9 @@ def bench_launches(mode: str, views: int = 40, val_views: int = 2) -> dict:
     preprocess forward a teacher frame (bench.py's 8) and a val frame
     (`val_views` at step 0, at each VAL_EVERY boundary before the end, and
     at the end), and one K1 alone a budgeted GT render (the quality scene's
-    `views`)."""
+    `views`), and one sparse Adam a 3DGS training step (none in the
+    Scaffold-GS modes, which take their own dense Adam, nor for the
+    importance renders)."""
     from dogs_tpu_torch.bench import VAL_EVERY
 
     def vals(steps):
@@ -477,8 +488,9 @@ def bench_launches(mode: str, views: int = 40, val_views: int = 2) -> dict:
         "--scaffold": (sum(BENCH_SCAFFOLD_WINDOWS), 8, 0),
         "--scaffold-quality": (BENCH_SCAFFOLD_QUALITY_STEPS, vals(BENCH_SCAFFOLD_QUALITY_STEPS), views),
     }[mode]
+    adam = {"--scaffold": 0, "--scaffold-quality": 0, "--quality-admm": BENCH_QUALITY_STEPS}.get(mode, steps)
     return {"blend_forward": steps + frames + budgeted, "blend_backward": steps, "sorted_segment_sum": steps,
-            "preprocess_forward": steps + frames, "preprocess_backward": steps}
+            "preprocess_forward": steps + frames, "preprocess_backward": steps, "sparse_adam_step": adam}
 
 
 def bench_phase(h) -> None:
@@ -542,8 +554,9 @@ def bench_phase(h) -> None:
             for text in out.getvalue().splitlines():
                 print(f"[bench] {text}")
             want = bench_launches(mode)
+            adam = want.pop("sparse_adam_step")
             launches[mode] = h.add_counts(f"bench {mode}", list(h.counted) if mode != "--consensus" else [],
-                                          budgeted=want["blend_forward"] - want["preprocess_forward"])
+                                          budgeted=want["blend_forward"] - want["preprocess_forward"], adam=adam)
             check(launches[mode] == want, f"bench {mode}: launches {launches[mode]}, expected {want}")
             messages = [r.getMessage() for r in records]
             check(len(lines) == {"--scaling": 4, "--consensus": 3}.get(mode, 1),
@@ -992,6 +1005,7 @@ COUNTED_CLI = r"""
 import json, runpy, sys, time
 import torch
 from dogs_tpu_torch.raster import blend, preprocess, reduce
+from dogs_tpu_torch.train import optim
 from dogs_tpu_torch.train.trainer import GaussianSplatTrainer
 from dogs_tpu_torch.utils import gif
 
@@ -1029,7 +1043,7 @@ sys.argv = sys.argv[1:]
 runpy.run_module(sys.argv[0], run_name="__main__", alter_sys=True)
 rec["launches"] = {fn.__name__: fn.launches for fn in (blend.blend_forward, blend.blend_backward,
                                                        reduce.sorted_segment_sum, preprocess.preprocess_forward,
-                                                       preprocess.preprocess_backward)}
+                                                       preprocess.preprocess_backward, optim.sparse_adam_step)}
 rec["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
 print("[counted] " + json.dumps(rec))
 """
@@ -1217,7 +1231,7 @@ def jpeg_phase(h) -> dict:
             f"trainer.n_validation={JPEG_VAL_EVERY}", f"trainer.n_checkpoint={JPEG_STEPS}")
         for fn in h.counted:  # the launches of the CLI's process
             fn.launches = rec["launches"][fn.__name__]
-        launches = h.add_counts("jpeg scene train CLI", list(h.counted))
+        launches = h.add_counts("jpeg scene train CLI", list(h.counted), adam=JPEG_STEPS)
         check(launches["blend_backward"] == launches["sorted_segment_sum"] == JPEG_STEPS
               and launches["blend_forward"] == JPEG_STEPS + rec["val_images"],
               f"JPEG scene: launches {launches}, expected K2 and K3 {JPEG_STEPS} and K1 {JPEG_STEPS} + "
@@ -1422,7 +1436,7 @@ def progressive_phase(h, base: dict) -> None:
             f"trainer.n_checkpoint={PROG_STEPS}")
         for fn in h.counted:  # the launches of the CLI's process
             fn.launches = rec["launches"][fn.__name__]
-        launches = h.add_counts("progressive scene train CLI", list(h.counted))
+        launches = h.add_counts("progressive scene train CLI", list(h.counted), adam=PROG_STEPS)
         check(launches["blend_backward"] == launches["sorted_segment_sum"] == PROG_STEPS
               and launches["blend_forward"] == PROG_STEPS + rec["val_images"],
               f"progressive scene: launches {launches}, expected K2 and K3 {PROG_STEPS} and K1 {PROG_STEPS} + "
@@ -1510,7 +1524,7 @@ def main() -> int:
     from dogs_tpu_torch.raster.projection import project_gaussians
     from dogs_tpu_torch.raster.ssim import ssim
     from dogs_tpu_torch.raster.tiled import RasterConfig, entry_matrix, render_tiled
-    from dogs_tpu_torch.train import schedule
+    from dogs_tpu_torch.train import optim, schedule
     from dogs_tpu_torch.train import trainer as trainer_mod
     from dogs_tpu_torch.tools import colmap_scene
     from dogs_tpu_torch.train.checkpoint import CheckpointManager, load_train_state, train_state_arrays
@@ -1522,25 +1536,30 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     counted = {blend.blend_forward: 0, blend.blend_backward: 0, reduce.sorted_segment_sum: 0,
-               preprocess.preprocess_forward: 0, preprocess.preprocess_backward: 0}
+               preprocess.preprocess_forward: 0, preprocess.preprocess_backward: 0, optim.sparse_adam_step: 0}
 
     def reset_counts():
         for fn in counted:
             fn.launches = 0
 
-    def add_counts(path: str, required, budgeted: int = 0) -> dict:
-        """Read the counts of a main-path run; fail if a kernel it needs
-        was never launched, or if a render did not go through the
+    def add_counts(path: str, required, budgeted: int = 0, adam: int = 0) -> dict:
+        """Read the counts of a main-path run; fail if a raster kernel it
+        needs was never launched, if a render did not go through the
         preprocess pair: one forward a K1 launch, one backward a K2 launch
         (`budgeted`: K1 launches of bench.py's budgeted GT, which blend
-        entries of the plain projection)."""
-        got = {fn.__name__: fn.launches for fn in counted}
-        print(f"[{path}] kernel launches: {got}")
+        entries of the plain projection), or unless the sparse Adam ran
+        exactly `adam` times, one launch a make_train_step step. Returns the
+        raster kernels' counts."""
+        adam_fn = optim.sparse_adam_step
+        got = {fn.__name__: fn.launches for fn in counted if fn is not adam_fn}
+        print(f"[{path}] kernel launches: {got}, sparse_adam_step {adam_fn.launches}")
         for fn in required:
-            check(fn.launches > 0, f"{path}: {fn.__name__} was not launched")
+            check(fn is adam_fn or fn.launches > 0, f"{path}: {fn.__name__} was not launched")
         check(got["preprocess_forward"] == got["blend_forward"] - budgeted
               and got["preprocess_backward"] == got["blend_backward"],
               f"{path}: launches {got}: not one preprocess forward a render and one backward a K2")
+        check(adam_fn.launches == adam, f"{path}: sparse_adam_step launched {adam_fn.launches} times, expected "
+              f"one per train step ({adam})")
         for fn in counted:
             counted[fn] += fn.launches
         return got
@@ -1617,7 +1636,7 @@ def main() -> int:
             dict(synthetic.RANDOM_SCENE_VIEW, width=200, height=130, fx=120.0, fy=120.0), 2,
         ),
     }
-    max_err = dict.fromkeys(("fwd", "bwd", "seg", "pre_fwd", "pre_bwd"), 0.0)
+    max_err = dict.fromkeys(("fwd", "bwd", "seg", "pre_fwd", "pre_bwd", "adam"), 0.0)
     with torch.no_grad():
         for name, (arrays, view, deg) in small.items():
             params = params_from_numpy(arrays, dev)
@@ -1796,7 +1815,7 @@ def main() -> int:
         step_ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(m["loss"]))
         check(np.isfinite(losses[-1]), f"train step {i}: non-finite loss")
-    add_counts("train", list(counted))
+    add_counts("train", list(counted), adam=TRAIN_STEPS)
     for fn in counted:
         check(fn.launches == TRAIN_STEPS, f"train: {fn.__name__} launched {fn.launches} times, "
               f"expected one per step ({TRAIN_STEPS})")
@@ -1917,6 +1936,7 @@ def main() -> int:
                 None, torch.zeros((npre, 2), device=dev), None, cams[0],
                 alive=torch.ones(npre, dtype=torch.bool, device=dev), degree=3)
             ent_p, rad_p = preprocess.preprocess_forward(x)
+            vis_cam0 = rad_p > 0  # the step's `visible` at this camera (every slot alive)
             want_ent, want_rad = preprocess.preprocess_forward_reference(x)
             fwd_err = max(float((ent_p[:, c] - want_ent[:, c]).abs().max() / (want_ent[:, c].abs().max() + 1e-12))
                           for c in range(blend.ENT_WIDTH))
@@ -1966,7 +1986,69 @@ def main() -> int:
             kernel_ms[name], plain_ms[name], bound = pre_times[(name, "500k")]
             bounds[name] = (bound, "bytes")
             library_ms[name] = None  # no one PyTorch call computes the preprocess
+
+        # The sparse Adam at 4M Gaussians (SH 3: 59 floats a row) on random
+        # leaves at the trainer's learning rates, every row visible and with
+        # bench camera 0's visibility at 4M (the last preprocess above): the
+        # kernel against the plain loop bit for bit, its time, and its byte
+        # bound (a mask byte a row; 28 bytes an element of a visible row: p,
+        # g, m and v read, p, m and v written).
+        n4 = vis_cam0.shape[0]
+        lrs4 = trainer_mod.make_lr_schedules(tcfg, 5.0)[0](0)
+
+        def adam_inputs():
+            gen = torch.Generator(device=dev).manual_seed(17)
+
+            def draw(scale):
+                return {k: torch.randn((n4,) + shape, generator=gen, device=dev) * scale
+                        for k, shape in ADAM_ROW_SHAPES.items()}
+
+            p, g, m, v = draw(1.0), draw(1e-2), draw(1e-3), draw(1e-2)
+            return GaussianParams(**p), g, optim.SparseAdamState(mu=m, nu={k: x * x for k, x in v.items()})
+
+        def adam_leaves(params, state):
+            return [t for k in PARAM_NAMES for t in (getattr(params, k).detach(), state.mu[k], state.nu[k])]
+
+        adam_times = {}
+        for label, vis in (("all", torch.ones(n4, dtype=torch.bool, device=dev)), ("cam0", vis_cam0)):
+            got, want = adam_inputs(), adam_inputs()
+            optim.sparse_adam_step(*got, vis, lrs4)
+            optim.sparse_adam_step_reference(*want, vis, lrs4)
+            torch.cuda.synchronize()
+            pairs = list(zip(adam_leaves(got[0], got[2]), adam_leaves(want[0], want[2])))
+            check(all(torch.equal(a, b) for a, b in pairs), f"sparse Adam at 4M ({label}) differs from the plain loop")
+            max_err["adam"] = max(max_err["adam"], *(float((a - b).abs().max()) for a, b in pairs))
+            del want, pairs
+            ms = [cuda_ms(lambda: optim.sparse_adam_step(*got, vis, lrs4), 50),
+                  cuda_ms(lambda: optim.sparse_adam_step_reference(*got, vis, lrs4), 5)]
+            ms += [cuda_ms(lambda: optim.sparse_adam_step(*got, vis, lrs4), 50),
+                   cuda_ms(lambda: optim.sparse_adam_step_reference(*got, vis, lrs4), 5)]
+            n_vis = int(vis.sum())
+            moved_adam = n4 + n_vis * ADAM_ROW_FLOATS * 28
+            bound = moved_adam / PEAK_BYTES_PER_S * 1e3
+            adam_times[label] = (min(ms[0], ms[2]), min(ms[1], ms[3]), bound, n_vis)
+            print(f"[kernels] sparse_adam_step at 4M, {label} ({n_vis:,} of {n4:,} rows visible): kernel "
+                  f"{ms[0]:.4f}/{ms[2]:.4f} ms, plain {ms[1]:.3f}/{ms[3]:.3f} ms; {moved_adam:,} bytes -> bound "
+                  f"{bound:.4f} ms, share {bound / min(ms[0], ms[2]):.3f}; p, m, v bit for bit the plain loop's")
+            del got
+        kernel_ms["sparse_adam_step"], plain_ms["sparse_adam_step"], bound, _ = adam_times["all"]
+        bounds["sparse_adam_step"] = (bound, "bytes")
+        library_ms["sparse_adam_step"] = None  # no one PyTorch call computes the masked update
+        del vis_cam0
     del ts, train_model, step
+
+    # A train_4m-sized step (bench.py --scaling's largest: 4M Gaussians, SH
+    # 3, 1152x864): 8 steps, then 8 more under torch.profiler, summed by span.
+    ts4, step4, cams4, gts4 = bench.headline_workload(4_000_000, device=dev)
+    for i in range(len(cams4)):
+        ts4, _ = step4(ts4, cams4[i], gts4[i])
+    stats4, device_s4 = span_stages(lambda i: step4(ts4, cams4[i], gts4[i]), len(cams4))
+    print(f"[train] stages at 4M (device, {len(cams4)} profiled steps): "
+          + stage_line(stats4, device_s4, len(cams4), STEP_SPANS))
+    print(f"[train] dogs.step.adam at 4M: {1e3 * stats4['dogs.step.adam'].device_s / len(cams4):.3f} ms of device "
+          f"time a step ({stats4['dogs.step.adam'].launches / len(cams4):.0f} launches a step)")
+    del ts4, step4, cams4, gts4, stats4
+    torch.cuda.empty_cache()
 
     # ---- 6b. train (main path 3): the host loop from points ----------------
     # The configuration of tests/test_torch_train.py's trainer run against
@@ -1998,7 +2080,7 @@ def main() -> int:
         check(resumed.load_checkpoint(manager) == 20, "host loop: the checkpoint did not resume at step 20")
     loop.train(num_iterations=10, log_every=1)
     resumed.train(num_iterations=10, log_every=1)
-    add_counts("host loop", list(counted))
+    add_counts("host loop", list(counted), adam=19 + 1 + 10 + 10)
     val30 = loop.validate()["val_psnr"]
     alive = [int(m["n_alive"]) for m in loop.metrics_history]
     psnr = [m["psnr"] for m in loop.metrics_history]
@@ -2147,7 +2229,7 @@ def main() -> int:
     try:
         dloop.train(num_iterations=DENSIFY_STEPS, log_every=DENSIFY_EVERY)
         torch.cuda.synchronize()
-        dense_counts = add_counts("densify loop", list(counted))
+        dense_counts = add_counts("densify loop", list(counted), adam=DENSIFY_STEPS)
         dense_peak_mb = max([torch.cuda.max_memory_allocated(dev)] + peaks_before_parity) / 2**20
         n_events = len(events)
         path_parity("after the run", dloop.state.model, cams[0], dense_gts[0],
@@ -2445,7 +2527,7 @@ def main() -> int:
                 torch.cuda.synchronize()
                 ms.append((time.perf_counter() - t0) * 1e3)
                 losses.append(m["loss"])
-            for name, launches in add_counts(label, list(counted)).items():
+            for name, launches in add_counts(label, list(counted), adam=SCENE_STEPS).items():
                 check(launches == SCENE_STEPS, f"{label}: {name} launched {launches} times, expected one per step")
             losses = torch.stack(losses).tolist()
             check(all(np.isfinite(losses)), f"{label}: non-finite loss")
@@ -2712,7 +2794,7 @@ def main() -> int:
             admm_val = train_admm.train_scene(aconfig, SCENE_NAME)
             torch.cuda.synchronize()
             admm_s = time.perf_counter() - t0
-            admm_counts = add_counts("admm", list(counted))
+            admm_counts = add_counts("admm", list(counted), adam=4 * ADMM_STEPS)
             admm_peak_mb = max(torch.cuda.max_memory_allocated(dev), alog["fusion"]["peak_before"]) / 2**20
         finally:
             MT._step_blocks, MT._consensus, MT._fuse, MT._densify_blocks = originals_6g
@@ -2886,7 +2968,7 @@ def main() -> int:
         ctrainer.train(num_iterations=C2F_STEPS, log_every=0)
         c2f_s = time.perf_counter() - t0
         c2f_peak_mb = torch.cuda.max_memory_allocated(dev) / 2**20
-        for name, launches in add_counts("c2f", list(counted)).items():
+        for name, launches in add_counts("c2f", list(counted), adam=C2F_STEPS).items():
             check(launches == C2F_STEPS, f"c2f: {name} launched {launches} times, expected one per step")
         check([s for s, *_ in c2f_log["steps"]] == list(range(1, C2F_STEPS + 1)), "c2f: steps out of order")
         c2f_losses = torch.stack([st[3] for st in c2f_log["steps"]]).tolist()
@@ -2997,7 +3079,7 @@ def main() -> int:
             c2f_admm_val = train_admm.train_scene(cconfig, SCENE_NAME)
             torch.cuda.synchronize()
             c2f_admm_s = time.perf_counter() - t0
-            add_counts("c2f admm", list(counted))
+            add_counts("c2f admm", list(counted), adam=4 * C2F_ADMM_STEPS)
             c2f_admm_peak_mb = max(torch.cuda.max_memory_allocated(dev), c2f_admm["peak_before"]) / 2**20
         finally:
             MT._step_blocks = originals_6g[0]
@@ -3121,6 +3203,8 @@ def main() -> int:
         # No TPU kernel: dogs_tpu leaves projection, SH and the entry matrix to XLA's fusion.
         "preprocess_forward": ("dogs_tpu_torch/csrc/preprocess.cu", None, "pre_fwd"),
         "preprocess_backward": ("dogs_tpu_torch/csrc/preprocess.cu", None, "pre_bwd"),
+        # No TPU kernel: dogs_tpu leaves the sparse Adam to XLA's fusion. Its times are at 4M.
+        "sparse_adam_step": ("dogs_tpu_torch/csrc/sparse_adam.cu", None, "adam"),
     }
     totals = {fn.__name__: c for fn, c in counted.items()}
     print(json.dumps({"kernels": [
@@ -3139,6 +3223,9 @@ def main() -> int:
             "library_ms": library_ms[name],
             **({"ms_4m": pre_times[(name, "4M")][0], "plain_ms_4m": pre_times[(name, "4M")][1],
                 "bound_ms_4m": pre_times[(name, "4M")][2]} if (name, "4M") in pre_times else {}),
+            **({"ms_cam0": adam_times["cam0"][0], "plain_ms_cam0": adam_times["cam0"][1],
+                "bound_ms_cam0": adam_times["cam0"][2], "visible_cam0": adam_times["cam0"][3]}
+               if name == "sparse_adam_step" else {}),
         }
         for name, (src, tpu, key) in sources.items()
     ]}))

@@ -25,14 +25,15 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-KERNELS = ("blend_forward", "blend_backward", "segment_sum", "preprocess")
+KERNELS = ("blend_forward", "blend_backward", "segment_sum", "preprocess", "sparse_adam")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
-# Flags of one source beyond NVCC_FLAGS: the preprocess rounds each multiply
-# and add on its own, as the plain PyTorch version's separate operations do.
-EXTRA_FLAGS = {"preprocess": ("-fmad=false",)}
+# Flags of one source beyond NVCC_FLAGS: the preprocess and the sparse Adam
+# round each multiply and add on their own, as the plain PyTorch versions'
+# separate operations do.
+EXTRA_FLAGS = {"preprocess": ("-fmad=false",), "sparse_adam": ("-fmad=false",)}
 
 
 @dataclasses.dataclass(frozen=True)

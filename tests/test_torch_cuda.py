@@ -1,6 +1,6 @@
 """CUDA lane: the hand-written kernels (blend forward, blend backward,
-segment sum, the preprocess pair) against their plain PyTorch versions on
-the card, the LightGaussian importance render and the Scaffold-GS render
+segment sum, the preprocess pair, the sparse Adam) against their plain
+PyTorch versions on the card, the LightGaussian importance render and the Scaffold-GS render
 and step through them, and the densify surgery, LPIPS, the windowed KNN, the appearance mask
 CNN and the Scaffold-GS decode on the card against the CPU. The kernel
 scenes include a coarse-to-fine frame with a partial tile row. Every test here needs a CUDA
@@ -29,6 +29,7 @@ from dogs_tpu_torch.raster import blend, preprocess, reduce
 from dogs_tpu_torch.raster.binning import build_tile_bins
 from dogs_tpu_torch.raster.projection import project_gaussians
 from dogs_tpu_torch.raster.tiled import RasterConfig, entry_matrix, render_tiled
+from dogs_tpu_torch.train import optim
 from dogs_tpu_torch.train import trainer as ttrainer
 from dogs_tpu_torch.train.optim import SparseAdamState
 # By its file's name: pytest puts tests/ on the path, and the card's machine
@@ -36,6 +37,10 @@ from dogs_tpu_torch.train.optim import SparseAdamState
 from test_torch_preprocess import CASES as PRE_CASES
 from test_torch_preprocess import GRAD_TOL as PRE_GRAD_TOL
 from test_torch_preprocess import case_inputs, cotangent
+from test_torch_sparse_adam import CASES as ADAM_CASES
+from test_torch_sparse_adam import case_arrays as adam_case_arrays
+from test_torch_sparse_adam import case_inputs as adam_case_inputs
+from test_torch_sparse_adam import ieee_chain
 
 pytestmark = pytest.mark.cuda
 # Every hand-written kernel's wrapper, each with its launch count.
@@ -358,6 +363,99 @@ def test_train_step_launches_each_kernel_once(cuda):
     torch.cuda.synchronize()
     assert [fn.launches - n for fn, n in zip(ALL_KERNELS, counts)] == [1] * len(ALL_KERNELS)
     assert np.isfinite(float(metrics["loss"]))
+
+
+def adam_leaves(params, state) -> list[torch.Tensor]:
+    return [t for k in PARAM_NAMES for t in (getattr(params, k).detach(), state.mu[k], state.nu[k])]
+
+
+@pytest.mark.parametrize("case", list(ADAM_CASES))
+def test_sparse_adam_kernel_equals_the_plain_loop_bit_for_bit(case, cuda):
+    """One launch for the six leaves; p, m and v equal the plain loop's on
+    the card and the chain's in numpy float32, bit for bit."""
+    got, want = adam_case_inputs(case, cuda), adam_case_inputs(case, cuda)
+    before = optim.sparse_adam_step.launches
+    optim.sparse_adam_step(*got)
+    optim.sparse_adam_step_reference(*want)
+    torch.cuda.synchronize()
+    assert optim.sparse_adam_step.launches == before + 1
+    for a, b in zip(adam_leaves(got[0], got[2]), adam_leaves(want[0], want[2])):
+        assert torch.equal(a, b)
+    chain = ieee_chain(adam_case_arrays(case))
+    for a, b in zip(adam_leaves(got[0], got[2]), [x for k in PARAM_NAMES for x in chain[k]]):
+        assert np.array_equal(a.cpu().numpy().view(np.uint32), b.view(np.uint32))
+
+
+def test_sparse_adam_kernel_at_a_million_rows(cuda):
+    """1,000,003 rows at SH 3, a third visible: bit for bit the plain loop."""
+    rng = np.random.RandomState(5)
+    n = 1_000_003
+    shapes = dict(xyz=(n, 3), feat_dc=(n, 1, 3), feat_rest=(n, 15, 3), log_scale=(n, 3), quat=(n, 4),
+                  logit_opacity=(n, 1))
+    arrays = {k: rng.randn(*s).astype(np.float32) for k, s in shapes.items()}
+    visible = torch.as_tensor(rng.rand(n) < 1 / 3, device=cuda)
+    lrs = dict(xyz=8e-4, feat_dc=2.5e-3, feat_rest=1.25e-4, log_scale=5e-3, quat=1e-3, logit_opacity=0.05)
+    runs = []
+    for fn in (optim.sparse_adam_step, optim.sparse_adam_step_reference):
+        params = params_from_numpy(arrays, cuda)
+        grads = {k: torch.randn(s, generator=torch.Generator(device=cuda).manual_seed(1), device=cuda) * 1e-2
+                 for k, s in shapes.items()}
+        state = SparseAdamState(mu={k: g * 0.5 for k, g in grads.items()},
+                                nu={k: g * g for k, g in grads.items()})
+        fn(params, grads, state, visible, lrs)
+        runs.append(adam_leaves(params, state))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+def test_sparse_adam_kernel_rejects_a_misaligned_or_strided_parameter(cuda):
+    """What the kernel does not take raises before any launch; a strided
+    gradient is copied and the step equals the plain loop's."""
+    params, grads, state, visible, lrs = adam_case_inputs("n131_mixed", cuda)
+    n = visible.shape[0]
+    before = optim.sparse_adam_step.launches
+    xyz = params.xyz
+    params.xyz = torch.nn.Parameter(torch.empty(n * 3 + 1, device=cuda)[1:].view(n, 3))
+    with pytest.raises(ValueError, match="parameter of xyz must be contiguous and 16-byte aligned"):
+        optim.sparse_adam_step(params, grads, state, visible, lrs)
+    params.xyz = xyz
+    quat = params.quat
+    params.quat = torch.nn.Parameter(torch.empty((4, n), device=cuda).t())
+    with pytest.raises(ValueError, match="parameter of quat must be contiguous"):
+        optim.sparse_adam_step(params, grads, state, visible, lrs)
+    params.quat = quat
+    with pytest.raises(ValueError, match="CUDA"):
+        optim.sparse_adam_step(params, grads, state, visible.cpu(), lrs)
+    assert optim.sparse_adam_step.launches == before
+    want = adam_case_inputs("n131_mixed", cuda)
+    strided = torch.empty((3, n), device=cuda).t()
+    strided.copy_(grads["xyz"])
+    optim.sparse_adam_step(params, dict(grads, xyz=strided), state, visible, lrs)
+    optim.sparse_adam_step_reference(*want)
+    assert all(torch.equal(a, b) for a, b in zip(adam_leaves(params, state), adam_leaves(want[0], want[2])))
+
+
+@pytest.mark.parametrize("admm", [False, True], ids=["plain", "admm"])
+def test_train_step_launches_the_sparse_adam_once(admm, cuda):
+    """make_train_step, with and without the ADMM penalty, updates the six
+    leaves in one sparse Adam launch a step, and only visible rows move."""
+    scene = synthetic.make_scene(n_gaussians=64, n_cams=2, width=64, height=48, seed=0, device=cuda)
+    cfg = ttrainer.TrainerConfig(max_sh_degree=2, min_capacity=128)
+    ts = ttrainer.init_train_state(scene.points, scene.colors, len(scene.cameras), cfg, cuda)
+    step = ttrainer.make_train_step(cfg, RasterConfig(), 1.0, 2, (0.0, 0.0, 0.0), admm=admm)
+    p = ts.model.params
+    extra = ({k: torch.zeros_like(getattr(p, k)) for k in PARAM_NAMES},
+             {k: getattr(p, k).detach().clone() + 0.01 for k in PARAM_NAMES},
+             {k: torch.tensor(0.5, device=cuda) for k in PARAM_NAMES}) if admm else ()
+    before = optim.sparse_adam_step.launches
+    for i in range(3):
+        xyz = p.xyz.detach().clone()
+        ts, metrics = step(ts, scene.cameras[i % 2], scene.images[i % 2], *extra)
+        moved = (p.xyz.detach() != xyz).any(1)
+        assert int(moved.sum()) <= int(metrics["n_visible"])
+    torch.cuda.synchronize()
+    assert optim.sparse_adam_step.launches == before + 3
+    assert int(metrics["n_visible"]) > 0 and np.isfinite(float(metrics["loss"]))
 
 
 def densify_inputs(device):

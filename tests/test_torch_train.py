@@ -101,6 +101,31 @@ def test_sparse_adam_step_matches():
         np.testing.assert_array_equal(np_(ts.mu[k])[~visible], m[k][~visible])
 
 
+def test_sparse_adam_step_takes_the_plain_loop_on_cpu():
+    """On CPU tensors `sparse_adam_step` is `sparse_adam_step_reference`, bit
+    for bit: no kernel launches and nothing is built."""
+    from dogs_tpu_torch import kernels
+
+    rng = np.random.RandomState(2)
+    n = 70
+    p, g, m = (random_leaves(rng, n, k_sh=16) for _ in range(3))
+    v = {k: (rng.rand(*a.shape) * 1e-2).astype(np.float32) for k, a in p.items()}
+    visible = torch.from_numpy(rng.rand(n) > 0.3)
+    lrs = dict(xyz=1e-3, feat_dc=2.5e-3, feat_rest=1.25e-4, log_scale=5e-3, quat=1e-3, logit_opacity=0.025)
+    out = []
+    launches = toptim.sparse_adam_step.launches
+    built = kernels.build_all.cache_info().currsize
+    for fn in (toptim.sparse_adam_step, toptim.sparse_adam_step_reference):
+        tp = tgs.params_from_numpy(p, "cpu")
+        ts = toptim.SparseAdamState(mu={k: torch.from_numpy(m[k].copy()) for k in NAMES},
+                                    nu={k: torch.from_numpy(v[k].copy()) for k in NAMES})
+        fn(tp, {k: torch.from_numpy(g[k]) for k in NAMES}, ts, visible, lrs)
+        out.append([getattr(tp, k).detach() for k in NAMES] + [ts.mu[k] for k in NAMES] + [ts.nu[k] for k in NAMES])
+    assert all(torch.equal(a, b) for a, b in zip(*out))
+    assert toptim.sparse_adam_step.launches == launches == 0
+    assert kernels.build_all.cache_info().currsize == built == 0
+
+
 def test_adam_step_matches():
     rng = np.random.RandomState(1)
     p, g, m = (rng.randn(3, 4).astype(np.float32) for _ in range(3))
