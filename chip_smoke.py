@@ -462,6 +462,30 @@ def native_parser_times(path: str) -> tuple[float, float, int]:
     return native_s, numpy_s, n
 
 
+# The name of each kernel here (its wrapper's), by its launcher symbol: the
+# keys of dogs_tpu_torch.kernels.launches.
+KERNEL_NAMES = {"dogs_blend_forward": "blend_forward", "dogs_blend_backward": "blend_backward",
+                "dogs_segment_sum": "sorted_segment_sum", "dogs_preprocess_forward": "preprocess_forward",
+                "dogs_preprocess_backward": "preprocess_backward", "dogs_sparse_adam": "sparse_adam_step"}
+
+
+def launch_counts(launches=None) -> dict:
+    """Launches by kernel name, from `launches` (by launcher symbol; by
+    default kernels.launches: every launch since its last clear)."""
+    if launches is None:
+        from dogs_tpu_torch import kernels
+        launches = kernels.launches
+    return {name: launches.get(symbol, 0) for symbol, name in KERNEL_NAMES.items()}
+
+
+def set_launches(launches) -> None:
+    """Put kernels.launches back to `launches` (by launcher symbol): a copy
+    taken before work that does not count, or a child process's counts."""
+    from dogs_tpu_torch import kernels
+    kernels.launches.clear()
+    kernels.launches.update(launches)
+
+
 def bench_launches(mode: str, views: int = 40, val_views: int = 2) -> dict:
     """The launches of each kernel that each of 6j's runs must make: one of
     each a training step (block step, importance render), one K1 and one
@@ -616,7 +640,7 @@ def scaffold_phase(h) -> None:
     the scaffold CLIs. `h` carries main's helpers: dev, smi, counted,
     reset_counts, add_counts, check_segment_sum, random_cot, run_cli,
     max_err."""
-    from dogs_tpu_torch import bench
+    from dogs_tpu_torch import bench, kernels
     from dogs_tpu_torch.data import synthetic
     from dogs_tpu_torch.fields import scaffold as sc
     from dogs_tpu_torch.fields.appearance import exact_f32
@@ -662,7 +686,7 @@ def scaffold_phase(h) -> None:
         image and every leaf's and the means2d offset's gradient kernels
         against plain; outside the counts. Returns the peak memory before
         it and resets the peak after it."""
-        saved = {fn: fn.launches for fn in counted}
+        saved = kernels.launches.copy()
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated(dev)
         sp, alive, cam, gt = state.params, state.alive, cams[i], gts[i]
@@ -707,8 +731,7 @@ def scaffold_phase(h) -> None:
               f"Gaussians alive, K={k_entries:,}: image max|d| {img_err:.3e}, K1 max|d| {max(errs):.3e}, K2 max|d| "
               f"{err:.3e}, K3 bit for bit; gradients kernels vs plain, worst scaled |d| per leaf "
               + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()))
-        for fn, c in saved.items():
-            fn.launches = c
+        set_launches(saved)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         return peak
@@ -820,10 +843,9 @@ def scaffold_phase(h) -> None:
 
     # Where a step's device time goes: 8 more steps from the final state
     # under torch.profiler, summed by the step's spans (outside the counts).
-    saved = {fn: fn.launches for fn in counted}
+    saved = kernels.launches.copy()
     stage_stats = span_stages(lambda i: trainer._step_fn(trainer.state, cams[i], gts[i]), len(cams))
-    for fn, c in saved.items():
-        fn.launches = c
+    set_launches(saved)
 
     # The decode alone (prefilter, the three MLPs and the assembly) at the
     # final state on camera 0, device ms from CUDA events: forward, and
@@ -862,7 +884,7 @@ def scaffold_phase(h) -> None:
     # and a fresh
     # trainer resumed from it (across the capacity change) takes the same
     # event and steps bit for bit. All outside the counts.
-    saved = {fn: fn.launches for fn in counted}
+    saved = kernels.launches.copy()
     forced = dataclasses.replace(scfg, densify_grad_threshold=1e-9)
     keep = state.alive.cpu().numpy()
     cut = int(keep.sum())
@@ -913,8 +935,7 @@ def scaffold_phase(h) -> None:
           "scaffold: the run resumed before the capacity growth differs from the uninterrupted one")
     n_grown_leaves = len(got)
     del grown, want, got
-    for fn, c in saved.items():
-        fn.launches = c
+    set_launches(saved)
 
     # The checkpoint after the first event, resumed in a fresh trainer for
     # SCAFFOLD_RESUME steps, against the uninterrupted run (outside the counts).
@@ -927,8 +948,7 @@ def scaffold_phase(h) -> None:
         np.array_equal(got[k], snapshot[k]) and got[k].dtype == snapshot[k].dtype for k in got)
     diffs = {k: float(np.abs(got[k].astype(np.float64) - snapshot[k]).max()) for k in got
              if got[k].shape == snapshot[k].shape and got[k].size}
-    for fn, c in saved.items():
-        fn.launches = c
+    set_launches(saved)
     check(same, "scaffold: the resumed run differs from the uninterrupted one; largest differences "
           + ", ".join(f"{k} {v:.3e}" for k, v in sorted(diffs.items(), key=lambda kv: -kv[1])[:5]))
     del resumed, trainer, state, sp, leaves
@@ -1004,8 +1024,7 @@ JPEG_FIXTURE = "tests/data/torch_jpeg"  # PIL's JPEGs and PIL's decodes of them 
 COUNTED_CLI = r"""
 import json, runpy, sys, time
 import torch
-from dogs_tpu_torch.raster import blend, preprocess, reduce
-from dogs_tpu_torch.train import optim
+from dogs_tpu_torch import kernels
 from dogs_tpu_torch.train.trainer import GaussianSplatTrainer
 from dogs_tpu_torch.utils import gif
 
@@ -1041,9 +1060,7 @@ GaussianSplatTrainer.train_iteration, GaussianSplatTrainer.validate = timed_iter
 gif.write_gif = timed_gif
 sys.argv = sys.argv[1:]
 runpy.run_module(sys.argv[0], run_name="__main__", alter_sys=True)
-rec["launches"] = {fn.__name__: fn.launches for fn in (blend.blend_forward, blend.blend_backward,
-                                                       reduce.sorted_segment_sum, preprocess.preprocess_forward,
-                                                       preprocess.preprocess_backward, optim.sparse_adam_step)}
+rec["launches"] = dict(kernels.launches)
 rec["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
 print("[counted] " + json.dumps(rec))
 """
@@ -1229,8 +1246,7 @@ def jpeg_phase(h) -> dict:
         rec, log, train_s, launch = run_counted(
             root, "dogs_tpu_torch.train", *common, f"trainer.max_iterations={JPEG_STEPS}", "trainer.n_tensorboard=10",
             f"trainer.n_validation={JPEG_VAL_EVERY}", f"trainer.n_checkpoint={JPEG_STEPS}")
-        for fn in h.counted:  # the launches of the CLI's process
-            fn.launches = rec["launches"][fn.__name__]
+        set_launches(rec["launches"])  # the launches of the CLI's process
         launches = h.add_counts("jpeg scene train CLI", list(h.counted), adam=JPEG_STEPS)
         check(launches["blend_backward"] == launches["sorted_segment_sum"] == JPEG_STEPS
               and launches["blend_forward"] == JPEG_STEPS + rec["val_images"],
@@ -1257,7 +1273,7 @@ def jpeg_phase(h) -> dict:
             eval_psnr = json.load(f)["mean"]["psnr"]
         check(abs(eval_psnr - val_final) <= 1e-4,
               f"JPEG scene: eval CLI val PSNR {eval_psnr} vs the final validate() {val_final}")
-        check(erec["launches"]["blend_forward"] >= JPEG_POSES and len(erec["gif_s"]) == 1,
+        check(launch_counts(erec["launches"])["blend_forward"] >= JPEG_POSES and len(erec["gif_s"]) == 1,
               f"JPEG scene eval CLI: launches {erec['launches']}, GIF writes {erec['gif_s']}")
         with open(os.path.join(run, "test", "trajectory.gif"), "rb") as f:
             gif_bytes = f.read()
@@ -1434,8 +1450,7 @@ def progressive_phase(h, base: dict) -> None:
             root, "dogs_tpu_torch.train", *common, f"trainer.max_iterations={PROG_STEPS}",
             f"trainer.n_tensorboard={PROG_LOG_EVERY}", f"trainer.n_validation={PROG_STEPS}",
             f"trainer.n_checkpoint={PROG_STEPS}")
-        for fn in h.counted:  # the launches of the CLI's process
-            fn.launches = rec["launches"][fn.__name__]
+        set_launches(rec["launches"])  # the launches of the CLI's process
         launches = h.add_counts("progressive scene train CLI", list(h.counted), adam=PROG_STEPS)
         check(launches["blend_backward"] == launches["sorted_segment_sum"] == PROG_STEPS
               and launches["blend_forward"] == PROG_STEPS + rec["val_images"],
@@ -1535,12 +1550,10 @@ def main() -> int:
     # Full-f32 references: matmuls and convolutions without TF32.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    counted = {blend.blend_forward: 0, blend.blend_backward: 0, reduce.sorted_segment_sum: 0,
-               preprocess.preprocess_forward: 0, preprocess.preprocess_backward: 0, optim.sparse_adam_step: 0}
+    counted = dict.fromkeys(KERNEL_NAMES.values(), 0)  # launches of the counted runs, by kernel name
 
     def reset_counts():
-        for fn in counted:
-            fn.launches = 0
+        kernels.launches.clear()
 
     def add_counts(path: str, required, budgeted: int = 0, adam: int = 0) -> dict:
         """Read the counts of a main-path run; fail if a raster kernel it
@@ -1550,18 +1563,18 @@ def main() -> int:
         entries of the plain projection), or unless the sparse Adam ran
         exactly `adam` times, one launch a make_train_step step. Returns the
         raster kernels' counts."""
-        adam_fn = optim.sparse_adam_step
-        got = {fn.__name__: fn.launches for fn in counted if fn is not adam_fn}
-        print(f"[{path}] kernel launches: {got}, sparse_adam_step {adam_fn.launches}")
-        for fn in required:
-            check(fn is adam_fn or fn.launches > 0, f"{path}: {fn.__name__} was not launched")
+        got = launch_counts()
+        adam_n = got.pop("sparse_adam_step")
+        print(f"[{path}] kernel launches: {got}, sparse_adam_step {adam_n}")
+        for name in required:
+            check(name == "sparse_adam_step" or got[name] > 0, f"{path}: {name} was not launched")
         check(got["preprocess_forward"] == got["blend_forward"] - budgeted
               and got["preprocess_backward"] == got["blend_backward"],
               f"{path}: launches {got}: not one preprocess forward a render and one backward a K2")
-        check(adam_fn.launches == adam, f"{path}: sparse_adam_step launched {adam_fn.launches} times, expected "
-              f"one per train step ({adam})")
-        for fn in counted:
-            counted[fn] += fn.launches
+        check(adam_n == adam, f"{path}: sparse_adam_step launched {adam_n} times, expected one per train step "
+              f"({adam})")
+        for name, c in launch_counts().items():
+            counted[name] += c
         return got
 
     # ---- 1. device ---------------------------------------------------------
@@ -1733,7 +1746,7 @@ def main() -> int:
                 torch.cuda.synchronize()
                 frame_ms.append((time.perf_counter() - t0) * 1e3)
         metrics = evaluator.eval(cams, gts, split="val")
-        serve_counts = add_counts("serve", [blend.blend_forward])
+        serve_counts = add_counts("serve", ["blend_forward"])
         with open(f"{tmp}/val/metrics.json") as f:
             written = json.load(f)
     check(serve_counts["blend_forward"] == (ROUNDS + 1) * len(cams),
@@ -1816,9 +1829,8 @@ def main() -> int:
         losses.append(float(m["loss"]))
         check(np.isfinite(losses[-1]), f"train step {i}: non-finite loss")
     add_counts("train", list(counted), adam=TRAIN_STEPS)
-    for fn in counted:
-        check(fn.launches == TRAIN_STEPS, f"train: {fn.__name__} launched {fn.launches} times, "
-              f"expected one per step ({TRAIN_STEPS})")
+    for name, c in launch_counts().items():
+        check(c == TRAIN_STEPS, f"train: {name} launched {c} times, expected one per step ({TRAIN_STEPS})")
     train_peak_mb = torch.cuda.max_memory_allocated(dev) / 2**20
     first, last = np.mean(losses[:len(cams)]), np.mean(losses[-len(cams):])
     print(f"[train] {TRAIN_STEPS} steps at 500k/SH3/1152x864: loss {losses[0]:.5f} -> {losses[-1]:.5f}; "
@@ -2133,7 +2145,7 @@ def main() -> int:
         before it, and resets the peak after it. `rcfg`: the path's raster
         config (default: bench.py's, max_tiles_per_gaussian 12)."""
         rcfg = rcfg or kcfg
-        saved = {fn: fn.launches for fn in counted}
+        saved = kernels.launches.copy()
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated(dev)
         p, alive = model.params, model.alive
@@ -2167,8 +2179,7 @@ def main() -> int:
               f"K={idx.shape[0]:,}: forward max|d| {max(errs):.3e}, backward max|d| {err:.3e}, segment sum "
               f"bit for bit; step gradients kernels vs plain, worst scaled |d| per leaf "
               + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()))
-        for fn, c in saved.items():
-            fn.launches = c
+        set_launches(saved)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         return peak
@@ -2319,12 +2330,11 @@ def main() -> int:
         return GaussianModelState(params, torch.ones(n, dtype=torch.bool, device=dev),
                                   *(torch.zeros(n, device=dev) for _ in range(3)))
 
-    saved = {fn: fn.launches for fn in counted}
+    saved = kernels.launches.copy()
     imp_kernel = lightgaussian.importance_render(bench_model(), cams[0], cfg)
     imp_plain = lightgaussian.importance_render(bench_model(), cams[0], plain_cfg)
     torch.cuda.synchronize()
-    for fn, c in saved.items():
-        fn.launches = c
+    set_launches(saved)
     check(bool(torch.isfinite(imp_kernel).all()), "lightgaussian: non-finite kernel importance")
     mostly_close(imp_kernel, imp_plain, GRAD_ATOL, name="importance cam 0")
     print(f"[lightgaussian] ({smi}) camera 0 importance, kernels vs plain: max {float(imp_plain.max()):.4e}, "
@@ -2377,7 +2387,7 @@ def main() -> int:
         pruned_eval = GaussianSplatEvaluator(lg_model, cfg, EvalConfig(output_dir=tmp, save_images=False))
         reset_counts()
         pruned_metrics = pruned_eval.eval(cams, gts, split="val")
-        pe_counts = add_counts("pruned eval", [blend.blend_forward])
+        pe_counts = add_counts("pruned eval", ["blend_forward"])
         check(pe_counts["blend_forward"] == len(cams), f"pruned eval: {pe_counts['blend_forward']} K1 launches")
         t0 = time.perf_counter()
         pruned_eval.export(os.path.join(tmp, "export"))
@@ -2850,7 +2860,7 @@ def main() -> int:
         run_dir = os.path.join(tmp, "out", aconfig.expname)
         ckpt = CheckpointManager(os.path.join(run_dir, "model")).latest_path()
         ckpt_mb = os.path.getsize(ckpt) / 2**20
-        saved_counts = {fn: fn.launches for fn in counted}
+        saved_counts = kernels.launches.copy()
         t0 = time.perf_counter()
         resumed = master_mod.MasterTrainer.from_manifests(
             scene_root, 2, 2, trainer_cfg=factory._trainer_config(aconfig),
@@ -2894,8 +2904,7 @@ def main() -> int:
             return float(admm_mod.consensus_round(am.blocks, am.n_global, am._rho_dev[0], am.admm_cfg)[4]["xyz"])
 
         rho_tied, rho_free = primal_after(RHO_SCALE), primal_after(0.0)
-        for fn, c in saved_counts.items():
-            fn.launches = c
+        set_launches(saved_counts)
         check(rho_tied < rho_free, f"admm: primal xyz at rho x {RHO_SCALE} {rho_tied:.4e} not below rho = 0's "
               f"{rho_free:.4e}")
         phase_ms = {on: [ms for _, admm_on, ms, _ in alog["steps"] if admm_on == on] for on in (False, True)}
@@ -3017,7 +3026,7 @@ def main() -> int:
         check(all(c == len(traced_steps) for c in trace_kernels.values()) and spans == traced_steps,
               f"c2f: trace kernels {trace_kernels}, spans {spans}, expected {len(traced_steps)} of each")
 
-        saved_counts = {fn: fn.launches for fn in counted}
+        saved_counts = kernels.launches.copy()
         for step, (model, cam, gt, deg) in sorted(c2f_log["inputs"].items()):
             c2f_peak_mb = max(c2f_peak_mb, path_parity(
                 f"step {step}'s inputs at factor {ctrainer.training_resolution(step)} ({cam.width}x{cam.height}, "
@@ -3037,8 +3046,7 @@ def main() -> int:
         resumed_c2f.images.close()
         ctrainer.images.close()
         del resumed_c2f, ctrainer, a, b
-        for fn, c in saved_counts.items():
-            fn.launches = c
+        set_launches(saved_counts)
 
         # The ADMM master with coarse-to-fine on 6g's blocks.
         c2f_admm_args = [f"dataset.root_dir={os.path.join(tmp, 'data')}", "dataset.factor=2",
@@ -3060,13 +3068,13 @@ def main() -> int:
                     f"block 0 at master step 1's inputs (factor {res})", self.blocks[0].train.model,
                     self.block_cameras[0][i].downsample(res), self._gt(0, i, res), self.active_sh_degree(1),
                     rcfg=self.raster_cfg, tag="c2f admm")
-            before = {fn: fn.launches for fn in counted}
+            before = launch_counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = originals_6g[0](self)
             torch.cuda.synchronize()
             c2f_admm["steps"].append((self.step, res, (time.perf_counter() - t0) * 1e3,
-                                      {fn.__name__: fn.launches - before[fn] for fn in counted},
+                                      {name: c - before[name] for name, c in launch_counts().items()},
                                       torch.stack([m["loss"].to(dev) for m in out])))
             return out
 
@@ -3089,7 +3097,7 @@ def main() -> int:
               and [r for _, r, *_ in c2f_admm["steps"]] == want_res and sorted(set(want_res)) == [1, 2, 4],
               f"c2f admm: steps {[(s, r) for s, r, *_ in c2f_admm['steps']]}")
         per_step = [d for *_, d, _ in c2f_admm["steps"]]
-        check(all(d == {fn.__name__: 4 for fn in counted} for d in per_step),
+        check(all(d == dict.fromkeys(counted, 4) for d in per_step),
               f"c2f admm: launches per master step {per_step}, expected 4 of each kernel")
         c2f_block_losses = torch.stack([ls for *_, ls in c2f_admm["steps"]]).cpu()
         check(bool(torch.isfinite(c2f_block_losses).all()) and cm.admm_enabled and np.isfinite(c2f_admm_val["val_psnr"]),
@@ -3206,14 +3214,13 @@ def main() -> int:
         # No TPU kernel: dogs_tpu leaves the sparse Adam to XLA's fusion. Its times are at 4M.
         "sparse_adam_step": ("dogs_tpu_torch/csrc/sparse_adam.cu", None, "adam"),
     }
-    totals = {fn.__name__: c for fn, c in counted.items()}
     print(json.dumps({"kernels": [
         {
             "name": name,
             "route": "cuda",
             "source": src,
             "replaces": tpu,
-            "launches": totals[name],
+            "launches": counted[name],
             "max_abs_err": max_err[key],
             "ms": kernel_ms[name],
             "plain_ms": plain_ms[name],

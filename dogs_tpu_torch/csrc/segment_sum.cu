@@ -37,7 +37,7 @@
 // What is left is the gather itself: rows of one Gaussian lie in different
 // tiles, so the reads are random 64-byte pieces. The alternative layout, one
 // thread per Gaussian with three float4 loads a row, was slower on the card
-// (dogs_tpu_torch/tools/segment_sum_ab.py, PERF.md).
+// (PERF.md).
 //
 // Layout: rows (K, 16) f32 row-major, 16-byte aligned; src (K,) int32 in
 // [0, K); starts (n_out + 1,) int32 nondecreasing, starts[n_out] <= K;

@@ -55,7 +55,7 @@ from dogs_tpu_torch.core.gaussians import NeuralGaussians, round_up_capacity
 from dogs_tpu_torch.fields.appearance import exact_f32, flatten
 from dogs_tpu_torch.raster.ssim import ssim
 from dogs_tpu_torch.raster.tiled import RasterConfig, RenderOutput, render_tiled
-from dogs_tpu_torch.train.optim import adam_step, exponential_lr
+from dogs_tpu_torch.train.optim import adam_in_place, exponential_lr
 from dogs_tpu_torch.train.trainer import _as_image
 from dogs_tpu_torch.utils import trace
 
@@ -538,9 +538,7 @@ def make_scaffold_step(cfg: ScaffoldConfig, raster_cfg: RasterConfig) -> Callabl
             with trace.span("dogs.step.adam"):
                 for (path, p), g, m, v in zip(sp.leaves().items(), grads, state.mu.leaves().values(),
                                               state.nu.leaves().values()):
-                    new = adam_step(p, g, m, v, lr[path[1:].split("/")[0]], state.step)
-                    for dst, src in zip((p, m, v), new):
-                        dst.copy_(src)
+                    adam_in_place(p, g, m, v, lr[path[1:].split("/")[0]], state.step)
             with trace.span("dogs.step.stats"):
                 if cfg.stat_start_iter <= state.step < cfg.densify_end_iter:
                     # Densify statistics (scaffold_gs.py:407-434).

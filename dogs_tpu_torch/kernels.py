@@ -8,10 +8,16 @@ one nvcc process per source, all started together, into
 header under `csrc/` and of the flags, so an edit to any of them rebuilds
 all. Nothing here runs at import time: this module imports on machines with
 no CUDA toolkit, and only `build_all` needs one.
+
+Every kernel wrapper of the package checks its inputs, allocates its outputs
+and calls `launch` once: `launch` is the only place that reaches a launcher,
+and `launches` counts every launch by launcher symbol (`dogs_blend_forward`,
+...). Tests and smoke runs read that one counter; `launches.clear()` resets it.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import dataclasses
 import functools
@@ -21,6 +27,8 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
+
+import torch
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
@@ -108,3 +116,29 @@ def launcher(name: str, symbol: str, argtypes: tuple) -> ctypes._CFuncPtr:
     fn.argtypes = list(argtypes)
     fn.restype = ctypes.c_int
     return fn
+
+
+launches: collections.Counter = collections.Counter()  # kernel launches by launcher symbol
+
+
+def require_cuda(name: str, *tensors: torch.Tensor) -> None:
+    """Raise unless every tensor lies on one CUDA device: a kernel wrapper
+    never runs a plain version in its place."""
+    dev = tensors[0].device
+    if not all(t.is_cuda and t.device == dev for t in tensors):
+        raise ValueError(
+            f"{name} runs the CUDA kernel: its tensors (on "
+            f"{sorted({str(t.device) for t in tensors})}) must share one CUDA device"
+        )
+
+
+def launch(name: str, symbol: str, argtypes: tuple, *args, device: torch.device | str = "cuda") -> None:
+    """Call the launcher `symbol` of library `name` with `args` and the
+    current stream of `device` (its last argument in `argtypes`), with no
+    sync, and count it in `launches`. A nonzero return raises."""
+    fn = launcher(name, symbol, argtypes)
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{symbol} kernel launch failed: CUDA error {err}")
+    launches[symbol] += 1

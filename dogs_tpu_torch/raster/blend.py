@@ -81,20 +81,9 @@ def _check_cot(cot: torch.Tensor, n_tiles: int, tile_size: int = TILE) -> None:
 
 
 def _check_kernel_args(name: str, ent_n: torch.Tensor, *tensors: torch.Tensor) -> None:
-    require_cuda(name, ent_n, *tensors)
+    kernels.require_cuda(name, ent_n, *tensors)
     if ent_n.data_ptr() % 16:
         raise ValueError(f"{name}: ent_n must be 16-byte aligned (the kernel copies 16-byte pieces)")
-
-
-def require_cuda(name: str, *tensors: torch.Tensor) -> None:
-    """Raise unless every tensor lies on one CUDA device: a kernel wrapper
-    never runs a plain version in its place."""
-    dev = tensors[0].device
-    if not all(t.is_cuda and t.device == dev for t in tensors):
-        raise ValueError(
-            f"{name} runs the CUDA kernel: its tensors (on "
-            f"{sorted({str(t.device) for t in tensors})}) must share one CUDA device"
-        )
 
 
 def blend_forward(
@@ -116,21 +105,10 @@ def blend_forward(
     n_tiles = n_tiles_y * n_tiles_x
     _check_kernel_args("blend_forward", ent_n, sorted_idx, starts)
     _check_inputs(ent_n, sorted_idx, starts, n_tiles)
-    launch = kernels.launcher("blend_forward", "dogs_blend_forward", _FWD_ARGTYPES)
     out = torch.empty((n_tiles, OUT_ROWS, TILE * TILE), dtype=torch.float32, device=ent_n.device)
-    with torch.cuda.device(ent_n.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = launch(
-            ent_n.data_ptr(), sorted_idx.data_ptr(), starts.data_ptr(), out.data_ptr(),
-            n_tiles_x, n_tiles, width, height, stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"blend_forward kernel launch failed: CUDA error {err}")
-    blend_forward.launches += 1
+    kernels.launch("blend_forward", "dogs_blend_forward", _FWD_ARGTYPES, ent_n.data_ptr(), sorted_idx.data_ptr(),
+                   starts.data_ptr(), out.data_ptr(), n_tiles_x, n_tiles, width, height, device=ent_n.device)
     return out
-
-
-blend_forward.launches = 0  # kernel launches since the last reset
 
 
 def blend_backward(
@@ -153,22 +131,12 @@ def blend_backward(
     _check_kernel_args("blend_backward", ent_n, sorted_idx, starts, cot)
     _check_inputs(ent_n, sorted_idx, starts, n_tiles)
     _check_cot(cot, n_tiles)
-    launch = kernels.launcher("blend_backward", "dogs_blend_backward", _BWD_ARGTYPES)
     k = sorted_idx.shape[0]
     d_ent = torch.empty((k, ENT_WIDTH), dtype=torch.float32, device=ent_n.device)
-    with torch.cuda.device(ent_n.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = launch(
-            ent_n.data_ptr(), sorted_idx.data_ptr(), starts.data_ptr(), cot.data_ptr(),
-            d_ent.data_ptr(), n_tiles_x, n_tiles, k, width, height, float(depth_threshold), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"blend_backward kernel launch failed: CUDA error {err}")
-    blend_backward.launches += 1
+    kernels.launch("blend_backward", "dogs_blend_backward", _BWD_ARGTYPES, ent_n.data_ptr(), sorted_idx.data_ptr(),
+                   starts.data_ptr(), cot.data_ptr(), d_ent.data_ptr(), n_tiles_x, n_tiles, k, width, height,
+                   float(depth_threshold), device=ent_n.device)
     return d_ent
-
-
-blend_backward.launches = 0  # kernel launches since the last reset
 
 
 def backward_cotangent(

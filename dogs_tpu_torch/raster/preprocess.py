@@ -28,7 +28,7 @@ scale modifier.
               d_ent's own columns on every slot.
 
 `preprocess_forward` / `preprocess_backward` launch the kernels (CUDA
-tensors only) and count their launches; the `*_reference` functions compute
+tensors only) through `kernels.launch`; the `*_reference` functions compute
 the same from `project_gaussians` + `entry_matrix` and autograd, on any
 device. The kernels build at first use (dogs_tpu_torch/kernels.py).
 """
@@ -75,6 +75,10 @@ class KernelGrads(ctypes.Structure):
         "d_ent", "radius", "xyz", "log_scale", "quat", "logit_opacity", "feat_dc", "feat_rest", "color",
         "means2d_offset", "invd_offset", "camera",
     )]
+
+
+_FWD_ARGTYPES = (ctypes.POINTER(KernelArgs), _VP, _VP, _VP)
+_BWD_ARGTYPES = (ctypes.POINTER(KernelArgs), ctypes.POINTER(KernelGrads), _VP, _VP)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -172,23 +176,14 @@ def preprocess_forward(x: Inputs) -> tuple[torch.Tensor, torch.Tensor]:
     cam = x.camera
     present = [t for t in (*(getattr(x, k) for k in SLOTS), x.alive, cam.R, cam.t, cam.fx, cam.fy, cam.cx, cam.cy)
                if t is not None]
-    blend.require_cuda("preprocess_forward", *present)
+    kernels.require_cuda("preprocess_forward", *present)
     n = x.xyz.shape[0]
     ent = torch.empty((n, blend.ENT_WIDTH), dtype=torch.float32, device=x.xyz.device)
     radius = torch.empty((n,), dtype=torch.float32, device=x.xyz.device)
     args = kernel_args(x)
-    launch = kernels.launcher("preprocess", "dogs_preprocess_forward",
-                              (ctypes.POINTER(KernelArgs), _VP, _VP, _VP))
-    with torch.cuda.device(x.xyz.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = launch(ctypes.byref(args), ent.data_ptr(), radius.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"preprocess_forward kernel launch failed: CUDA error {err}")
-    preprocess_forward.launches += 1
+    kernels.launch("preprocess", "dogs_preprocess_forward", _FWD_ARGTYPES, ctypes.byref(args), ent.data_ptr(),
+                   radius.data_ptr(), device=x.xyz.device)
     return ent, radius
-
-
-preprocess_forward.launches = 0  # kernel launches since the last reset
 
 
 def preprocess_backward(x: Inputs, d_ent: torch.Tensor, radius: torch.Tensor, needs) -> tuple:
@@ -204,7 +199,7 @@ def preprocess_backward(x: Inputs, d_ent: torch.Tensor, radius: torch.Tensor, ne
     d_ent = d_ent.contiguous()
     if d_ent.dtype != torch.float32 or tuple(d_ent.shape) != (n, blend.ENT_WIDTH):
         raise ValueError(f"d_ent must be ({n}, {blend.ENT_WIDTH}) float32, got {tuple(d_ent.shape)} {d_ent.dtype}")
-    blend.require_cuda("preprocess_backward", x.xyz, d_ent, radius)
+    kernels.require_cuda("preprocess_backward", x.xyz, d_ent, radius)
     want = dict(zip(GRAD_NAMES, needs))
     if x.color_override is not None:
         want["feat_dc"] = want["feat_rest"] = False
@@ -221,20 +216,11 @@ def preprocess_backward(x: Inputs, d_ent: torch.Tensor, radius: torch.Tensor, ne
 
     grads = KernelGrads(d_ent.data_ptr(), radius.data_ptr(), *(ptr(out[k]) for k in SLOTS), ptr(cam_out))
     args = kernel_args(x)
-    launch = kernels.launcher("preprocess", "dogs_preprocess_backward",
-                              (ctypes.POINTER(KernelArgs), ctypes.POINTER(KernelGrads), _VP, _VP))
-    with torch.cuda.device(x.xyz.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = launch(ctypes.byref(args), ctypes.byref(grads), ptr(partials), stream)
-    if err != 0:
-        raise RuntimeError(f"preprocess_backward kernel launch failed: CUDA error {err}")
-    preprocess_backward.launches += 1
+    kernels.launch("preprocess", "dogs_preprocess_backward", _BWD_ARGTYPES, ctypes.byref(args),
+                   ctypes.byref(grads), ptr(partials), device=x.xyz.device)
     d_r = cam_out[:9].view(3, 3) if cam_out is not None and want["R"] else None
     d_t = cam_out[9:] if cam_out is not None and want["t"] else None
     return (*(out[k] for k in SLOTS), d_r, d_t)
-
-
-preprocess_backward.launches = 0  # kernel launches since the last reset
 
 
 def preprocess_forward_reference(x: Inputs) -> tuple[torch.Tensor, torch.Tensor]:

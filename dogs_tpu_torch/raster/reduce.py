@@ -28,7 +28,7 @@ import ctypes
 import torch
 
 from dogs_tpu_torch import kernels
-from dogs_tpu_torch.raster.blend import ENT_WIDTH, N_GRADS, require_cuda
+from dogs_tpu_torch.raster.blend import ENT_WIDTH, N_GRADS
 
 _VP, _INT = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = (_VP, _VP, _VP, _VP, _INT, _INT, _VP)
@@ -61,23 +61,14 @@ def sorted_segment_sum(
     10-15 are zero. CUDA tensors only (`sorted_segment_sum_reference` is the
     plain version). `src` in [0, K) and `starts` nondecreasing up to K are
     not checked: reading them back would synchronize."""
-    require_cuda("sorted_segment_sum", rows, src, starts)
+    kernels.require_cuda("sorted_segment_sum", rows, src, starts)
     _check_inputs(rows, src, starts, n_out, reduce_dtype)
     if rows.data_ptr() % 16:
         raise ValueError("sorted_segment_sum: rows must be 16-byte aligned (the kernel reads float4s)")
-    launch = kernels.launcher("segment_sum", "dogs_segment_sum", _ARGTYPES)
     out = torch.empty((n_out, ENT_WIDTH), dtype=torch.float32, device=rows.device)
-    with torch.cuda.device(rows.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = launch(rows.data_ptr(), src.data_ptr(), starts.data_ptr(), out.data_ptr(), n_out,
-                     int(reduce_dtype == "bf16"), stream)
-    if err != 0:
-        raise RuntimeError(f"sorted_segment_sum kernel launch failed: CUDA error {err}")
-    sorted_segment_sum.launches += 1
+    kernels.launch("segment_sum", "dogs_segment_sum", _ARGTYPES, rows.data_ptr(), src.data_ptr(), starts.data_ptr(),
+                   out.data_ptr(), n_out, int(reduce_dtype == "bf16"), device=rows.device)
     return out
-
-
-sorted_segment_sum.launches = 0  # kernel launches since the last reset
 
 
 def sorted_segment_sum_reference(

@@ -78,25 +78,25 @@ class _TileBlend(torch.autograd.Function):
 
     Inputs: the N-space entry matrix `ent_n` (N, 16) and the background (3,)
     carry gradients; `sorted_idx` (K,) int32, `starts`, binning's key-sort
-    permutation `order` (K,), the tile grid and the config do not. Outputs
-    (T, P, 3) background-composited colour, (T, P) alpha and (T, P) inverse
-    depth.
+    permutation `order` (K,), the tile grid, the config and `use_kernel` do
+    not. Outputs (T, P, 3) background-composited colour, (T, P) alpha and
+    (T, P) inverse depth.
 
     The blends read `ent_n` through `sorted_idx`, so the gradient comes back
     per sorted entry and the K -> N reduce of the backward is the
     segment-sum kernel over runs that `order` gives (raster/reduce.py), not
-    autograd's scatter-add for an index. On CUDA tensors with
-    `cfg.use_kernel` the forward launches the blend forward kernel and the
+    autograd's scatter-add for an index. With `use_kernel` (decided once by
+    `render_tiled`) the forward launches the blend forward kernel and the
     backward the blend backward and segment-sum kernels; otherwise all three
     are their plain versions. Saved for the backward: `ent_n`, `sorted_idx`,
     `starts`, `order`, the background and the (T, 5, P) forward output.
     """
 
     @staticmethod
-    def forward(ctx, ent_n, background, sorted_idx, starts, order, grid, cfg):
+    def forward(ctx, ent_n, background, sorted_idx, starts, order, grid, cfg, use_kernel):
         args = (ent_n, sorted_idx, starts, *grid)
         with trace.span("dogs.raster.blend_fwd"):
-            if ent_n.is_cuda and cfg.use_kernel:
+            if use_kernel:
                 out = blend.blend_forward(*args)
             else:
                 out = blend.blend_forward_reference(*args, tile_size=cfg.tile_size)
@@ -104,19 +104,18 @@ class _TileBlend(torch.autograd.Function):
             aa = out[:, 3]
             img = out[:, 0:3].transpose(1, 2) + (1.0 - aa)[..., None] * background
         ctx.save_for_backward(ent_n, sorted_idx, starts, order, background, out)
-        ctx.grid, ctx.cfg = grid, cfg
+        ctx.grid, ctx.cfg, ctx.use_kernel = grid, cfg, use_kernel
         return img, aa, out[:, 4]
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, cot_img, cot_a, cot_d):
         ent_n, sorted_idx, starts, order, background, out = ctx.saved_tensors
-        cfg = ctx.cfg
+        cfg, use_kernel = ctx.cfg, ctx.use_kernel
         aa = out[:, 3]
         d_bg = (cot_img * (1.0 - aa)[..., None]).sum(dim=(0, 1))
         if not ctx.needs_input_grad[0]:
-            return None, d_bg, None, None, None, None, None
-        use_kernel = ent_n.is_cuda and cfg.use_kernel
+            return None, d_bg, None, None, None, None, None, None
         with trace.span("dogs.raster.blend_bwd"):
             cot = blend.backward_cotangent(out, cot_img, cot_a, cot_d, background)
             args = (ent_n, sorted_idx, starts, cot, *ctx.grid)
@@ -130,7 +129,7 @@ class _TileBlend(torch.autograd.Function):
             d_ent_n = reduce.reduce_entries(
                 d_ent, order, sorted_idx, ent_n.shape[0], cfg.reduce_dtype, use_kernel
             )
-        return d_ent_n, d_bg, None, None, None, None, None
+        return d_ent_n, d_bg, None, None, None, None, None, None
 
 
 def _detached(proj: ProjectedGaussians) -> ProjectedGaussians:
@@ -202,6 +201,7 @@ def render_tiled(
             ent_n = entry_matrix(proj, invd_offset)
     img, aa, dd = _TileBlend.apply(
         ent_n, background, bins.sorted_idx, bins.tile_starts, bins.order, (n_tiles_y, n_tiles_x, w, h), cfg,
+        use_kernel,
     )
 
     def untile(x):

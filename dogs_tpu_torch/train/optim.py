@@ -7,8 +7,9 @@ names (core/gaussians.PARAM_NAMES), the port of the JAX moment pytrees.
 `sparse_adam_step` updates parameters and moments in place, under
 `torch.no_grad()`, where the JAX version returns new arrays: on CUDA tensors
 in one launch of the hand-written kernel csrc/sparse_adam.cu for all six
-leaves (counted in `sparse_adam_step.launches`), on CPU tensors in the plain
-loop `sparse_adam_step_reference`. The two agree bit for bit.
+leaves, on CPU tensors in the plain loop `sparse_adam_step_reference`. The
+two agree bit for bit. `adam_step` and `adam_in_place` are the plain
+bias-corrected Adam of the auxiliary parameters and of Scaffold-GS.
 """
 
 from __future__ import annotations
@@ -21,7 +22,6 @@ import torch
 
 from dogs_tpu_torch import kernels
 from dogs_tpu_torch.core.gaussians import PARAM_NAMES, GaussianParams
-from dogs_tpu_torch.raster.blend import require_cuda
 
 _VP = ctypes.c_void_p
 
@@ -92,6 +92,9 @@ class KernelArgs(ctypes.Structure):
         (name, ctypes.c_float) for name in ("b1", "c1", "b2", "c2", "eps")]
 
 
+_ARGTYPES = (ctypes.POINTER(KernelArgs), _VP)
+
+
 def kernel_inputs(
     params: GaussianParams, grads: dict[str, torch.Tensor], state: SparseAdamState, visible: torch.Tensor
 ) -> dict[str, tuple[torch.Tensor, ...]]:
@@ -156,19 +159,11 @@ def sparse_adam_step(
     if not params.xyz.is_cuda:
         sparse_adam_step_reference(params, grads, state, visible, lrs, b1, b2, eps)
         return
-    require_cuda("sparse_adam_step", visible, *(t for k in PARAM_NAMES for t in (
+    kernels.require_cuda("sparse_adam_step", visible, *(t for k in PARAM_NAMES for t in (
         getattr(params, k), grads[k], state.mu[k], state.nu[k])))
     leaves = kernel_inputs(params, grads, state, visible)
     args = kernel_args(leaves, visible, lrs, b1, b2, eps)
-    launch = kernels.launcher("sparse_adam", "dogs_sparse_adam", (ctypes.POINTER(KernelArgs), _VP))
-    with torch.cuda.device(visible.device):
-        err = launch(ctypes.byref(args), torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"sparse_adam_step kernel launch failed: CUDA error {err}")
-    sparse_adam_step.launches += 1
-
-
-sparse_adam_step.launches = 0  # kernel launches since the last reset
+    kernels.launch("sparse_adam", "dogs_sparse_adam", _ARGTYPES, ctypes.byref(args), device=visible.device)
 
 
 @torch.no_grad()
@@ -215,3 +210,10 @@ def adam_step(
     mu_hat = mu / (1.0 - b1**t)
     nu_hat = nu / (1.0 - b2**t)
     return param - lr * mu_hat / (torch.sqrt(nu_hat) + eps), mu, nu
+
+
+@torch.no_grad()
+def adam_in_place(param, grad, mu, nu, lr: float, step: int) -> None:
+    """`adam_step` written back into `param`, `mu` and `nu`."""
+    for dst, src in zip((param, mu, nu), adam_step(param, grad, mu, nu, lr, step)):
+        dst.copy_(src)

@@ -76,7 +76,7 @@ from dogs_tpu_torch.raster.tiled import RasterConfig, render_tiled
 from dogs_tpu_torch.train import schedule
 from dogs_tpu_torch.train.optim import (
     SparseAdamState,
-    adam_step,
+    adam_in_place,
     exponential_lr,
     init_sparse_adam,
     sparse_adam_step,
@@ -269,13 +269,6 @@ def apply_exposure(image: torch.Tensor, exposure: torch.Tensor) -> torch.Tensor:
             + image[..., 2:3] * exposure[2, :3] + exposure[:3, 3])
 
 
-@torch.no_grad()
-def _adam_in_place(param, grad, mu, nu, lr: float, step: int) -> None:
-    """optim.adam_step written back into `param`, `mu` and `nu`."""
-    for dst, src in zip((param, mu, nu), adam_step(param, grad, mu, nu, lr, step)):
-        dst.copy_(src)
-
-
 def make_train_step(
     cfg: TrainerConfig,
     raster_cfg: RasterConfig,
@@ -388,13 +381,13 @@ def make_train_step(
                 sparse_adam_step(params, dict(zip(PARAM_NAMES, g_params)), ts.opt, visible, lrs_fn(ts.step))
                 mu, nu = appearance.flatten(ts.mask_mu), appearance.flatten(ts.mask_nu)
                 for (key, p), g in zip(mask_leaves.items(), g_mask):
-                    _adam_in_place(p, g, mu[key], nu[key], cfg.mask_lr, ts.step)
+                    adam_in_place(p, g, mu[key], nu[key], cfg.mask_lr, ts.step)
                 if cfg.use_trained_exposure and owns_row:
-                    _adam_in_place(ts.exposure[row], g_extra["exposure"], ts.exposure_mu[row],
+                    adam_in_place(ts.exposure[row], g_extra["exposure"], ts.exposure_mu[row],
                                    ts.exposure_nu[row], exposure_lr_fn(ts.step), ts.step)
                 if cfg.optimize_camera_poses and owns_row:
                     lr = cfg.pose_lr if ts.step >= cfg.opt_pose_start_iter and index != 0 else 0.0
-                    _adam_in_place(ts.pose_deltas[row], g_extra["pose"], ts.pose_mu[row], ts.pose_nu[row], lr,
+                    adam_in_place(ts.pose_deltas[row], g_extra["pose"], ts.pose_mu[row], ts.pose_nu[row], lr,
                                    ts.step)
             with trace.span("dogs.step.stats"):
                 if ts.step < cfg.densify_end_iter:

@@ -113,8 +113,7 @@ def test_quality_scene_matches_bench_py(scenes):
 
 
 def test_budget_tool_reproduces_bench_py_s_truncated_gt(scenes):
-    """`bench.render_budgeted` (the quality GT's renderer, which
-    tools/quality_gt_budget.py compares with the exact render) drops exactly
+    """`bench.render_budgeted` (the quality GT's renderer) drops exactly
     what dogs_tpu's two-tier pool drops: the same pool need and truncated
     Gaussians per view as dogs_tpu's render reports, and its render equals
     bench.py's images at the forward bar."""
@@ -249,16 +248,3 @@ def test_without_a_card_the_bench_exits_naming_the_device():
     assert proc.returncode != 0
     assert "no CUDA device" in proc.stderr
     assert not proc.stdout.strip()
-
-
-def test_budget_tool_prints_each_view_against_the_exact_render(capsys):
-    """tools/quality_gt_budget.py: one line per view and a summary; the
-    budget drops entries at this size, so its render is not the exact one."""
-    from dogs_tpu_torch.tools import quality_gt_budget
-
-    quality_gt_budget.main(["--device", "cpu", "--n-teacher", "800", "--width", "96", "--height", "72",
-                            "--views", "4", "--focal", "80"])
-    lines = [json.loads(s) for s in capsys.readouterr().out.splitlines()]
-    assert [line["view"] for line in lines[:-1]] == [0, 1, 2, 3] and lines[-1]["views"] == 4
-    assert sum(line["entries_dropped"] for line in lines[:-1]) > 0
-    assert np.isfinite(lines[-1]["psnr_budget_vs_exact_mean"])

@@ -12,11 +12,13 @@ device and skips without one. The file imports no JAX, so it runs on a machine w
 """
 
 import dataclasses
+import re
 
 import numpy as np
 import pytest
 import torch
 
+from dogs_tpu_torch import kernels
 from dogs_tpu_torch.core import look_at_camera, params_from_numpy
 from dogs_tpu_torch.data import synthetic
 from dogs_tpu_torch.core.gaussians import PARAM_NAMES
@@ -43,9 +45,11 @@ from test_torch_sparse_adam import case_inputs as adam_case_inputs
 from test_torch_sparse_adam import ieee_chain
 
 pytestmark = pytest.mark.cuda
-# Every hand-written kernel's wrapper, each with its launch count.
-ALL_KERNELS = (blend.blend_forward, blend.blend_backward, reduce.sorted_segment_sum,
-               preprocess.preprocess_forward, preprocess.preprocess_backward)
+# Every hand-written kernel's C launcher, read from the sources: the keys of
+# `kernels.launches`. A render and its backward launch all but the optimizer's.
+LAUNCHERS = tuple(sorted(name for path in kernels.CSRC.glob("*.cu")
+                         for name in re.findall(r'extern "C" int (\w+)\(', path.read_text())))
+RENDER_LAUNCHERS = tuple(name for name in LAUNCHERS if name != "dogs_sparse_adam")
 ATOL = 3e-4  # forward parity bar of tests/test_pallas_blend.py
 GRAD_ATOL = 2e-3  # max-normalized gradient bar of tests/test_pallas_blend.py:58-61
 MT = 36
@@ -124,11 +128,11 @@ def assert_columns_close(got, want, ncols, atol):
 def test_blend_kernel_matches_reference_on_card(scene, cuda):
     with torch.no_grad():
         args, _ = blend_args(scene, cuda)
-        before = blend.blend_forward.launches
+        before = kernels.launches.copy()
         got = blend.blend_forward(*args)
         want = blend.blend_forward_reference(*args)
     torch.cuda.synchronize()
-    assert blend.blend_forward.launches == before + 1
+    assert kernels.launches - before == {"dogs_blend_forward": 1}
     torch.testing.assert_close(got, want, atol=ATOL, rtol=0)
 
 
@@ -137,14 +141,13 @@ def test_render_uses_kernel_on_card(cuda):
     params = params_from_numpy(make(), cuda)
     cam = look_at_camera(**view, device=cuda)
     bg = torch.tensor([0.15, 0.25, 0.35], device=cuda)
-    kernels_ = (blend.blend_forward, preprocess.preprocess_forward)
-    before = [fn.launches for fn in kernels_]
+    before = kernels.launches.copy()
     got = render_tiled(params, cam, RasterConfig(max_tiles_per_gaussian=MT), background=bg,
                        active_sh_degree=deg)
-    assert [fn.launches for fn in kernels_] == [n + 1 for n in before]
+    assert kernels.launches - before == {"dogs_blend_forward": 1, "dogs_preprocess_forward": 1}
     want = render_tiled(params, cam, RasterConfig(max_tiles_per_gaussian=MT, use_kernel=False),
                         background=bg, active_sh_degree=deg)
-    assert [fn.launches for fn in kernels_] == [n + 1 for n in before]
+    assert kernels.launches - before == {"dogs_blend_forward": 1, "dogs_preprocess_forward": 1}
     assert torch.equal(got.radii, want.radii)
     for f in ("image", "alpha", "invdepth"):
         torch.testing.assert_close(getattr(got, f), getattr(want, f), atol=ATOL, rtol=0)
@@ -157,12 +160,12 @@ def test_blend_backward_kernel_matches_reference_and_is_deterministic(scene, dep
     cot = random_cot(args, seed=7)
     ent_n, idx, starts, *grid = args
     kw = dict(depth_threshold=depth_threshold)
-    before = blend.blend_backward.launches
+    before = kernels.launches.copy()
     got = blend.blend_backward(ent_n, idx, starts, cot, *grid, **kw)
     again = blend.blend_backward(ent_n, idx, starts, cot, *grid, **kw)
     want = blend.blend_backward_reference(ent_n, idx, starts, cot, *grid, **kw)
     torch.cuda.synchronize()
-    assert blend.blend_backward.launches == before + 2
+    assert kernels.launches - before == {"dogs_blend_backward": 2}
     assert torch.equal(got, again)  # no atomics: bit-identical
     assert torch.isfinite(got).all() and not got[:, 10:].any()
     assert_columns_close(got, want, 10, GRAD_ATOL)
@@ -206,12 +209,12 @@ def test_segment_sum_kernel_matches_reference_and_is_deterministic(scene, reduce
     d_ent = torch.randn((args[1].shape[0], blend.ENT_WIDTH), generator=g, device=cuda)
     n = int(bins.sorted_idx.max()) + 5 if bins.sorted_idx.numel() else 5
     src, starts = reduce.gaussian_runs(bins.order, bins.sorted_idx, n)
-    before = reduce.sorted_segment_sum.launches
+    before = kernels.launches.copy()
     got = reduce.sorted_segment_sum(d_ent, src, starts, n, reduce_dtype)
     again = reduce.sorted_segment_sum(d_ent, src, starts, n, reduce_dtype)
     want = reduce.sorted_segment_sum_reference(d_ent, src, starts, n, reduce_dtype)
     torch.cuda.synchronize()
-    assert reduce.sorted_segment_sum.launches == before + 2
+    assert kernels.launches - before == {"dogs_segment_sum": 2}
     assert torch.equal(got, again)
     assert torch.equal(got, want)  # the same f32 adds in the same order
 
@@ -243,14 +246,13 @@ def test_render_backward_goes_through_all_three_kernels(reduce_dtype, cuda):
         params = params_from_numpy(make(), cuda)
         bg = torch.tensor([0.1, 0.2, 0.3], device=cuda, requires_grad=True)
         cfg = RasterConfig(max_tiles_per_gaussian=MT, use_kernel=use_kernel, reduce_dtype=reduce_dtype)
-        counts = [fn.launches for fn in ALL_KERNELS]
+        before = kernels.launches.copy()
         out = render_tiled(params, cam, cfg, background=bg, active_sh_degree=deg)
         loss = ((out.image - target) ** 2).sum() + 0.3 * (out.alpha**2).sum() + 0.1 * (out.invdepth**2).sum()
         leaves = [getattr(params, k) for k in PARAM_NAMES] + [bg]
         grads[use_kernel] = torch.autograd.grad(loss, leaves)
         torch.cuda.synchronize()
-        after = [fn.launches for fn in ALL_KERNELS]
-        assert [a - b for a, b in zip(after, counts)] == [int(use_kernel)] * len(ALL_KERNELS)
+        assert kernels.launches - before == (dict.fromkeys(RENDER_LAUNCHERS, 1) if use_kernel else {})
     for name, a, b in zip(PARAM_NAMES + ("background",), grads[False], grads[True]):
         scale = float(a.abs().max()) + 1e-6
         torch.testing.assert_close(b / scale, a / scale, atol=GRAD_ATOL, rtol=0, msg=lambda m: f"{name}: {m}")
@@ -276,12 +278,12 @@ def test_preprocess_forward_kernel_matches_plain(case, cuda):
     """SH 0-4, antialiasing, the scale modifier, alive, both offsets and a
     colour override, on slots behind the near plane and past the EWA clamp."""
     x = case_inputs(case, cuda)
-    before = preprocess.preprocess_forward.launches
+    before = kernels.launches.copy()
     with torch.no_grad():
         got = preprocess.preprocess_forward(x)
         want = preprocess.preprocess_forward_reference(x)
     torch.cuda.synchronize()
-    assert preprocess.preprocess_forward.launches == before + 1
+    assert kernels.launches - before == {"dogs_preprocess_forward": 1}
     assert_preprocess_forward_close(got, want)
 
 
@@ -289,12 +291,12 @@ def assert_preprocess_backward(x, radius, needs, seed):
     """The backward kernel's gradients against autograd through the plain
     forward, and bit for bit over two launches."""
     d_ent = cotangent(radius, seed)
-    before = preprocess.preprocess_backward.launches
+    before = kernels.launches.copy()
     got = preprocess.preprocess_backward(x, d_ent, radius, needs)
     again = preprocess.preprocess_backward(x, d_ent, radius, needs)
     want = preprocess.preprocess_backward_reference(x, d_ent, radius, needs)
     torch.cuda.synchronize()
-    assert preprocess.preprocess_backward.launches == before + 2
+    assert kernels.launches - before == {"dogs_preprocess_backward": 2}
     for name, a, b, w in zip(preprocess.GRAD_NAMES, got, again, want):
         assert (a is None) == (w is None), name
         if a is not None:
@@ -351,17 +353,18 @@ def test_preprocess_kernels_on_a_scaffold_decode(scaffold_trainer):
 
 
 def test_train_step_launches_each_kernel_once(cuda):
-    """A 3DGS step (make_train_step, SH 2, the densify offset) launches the
-    preprocess forward, K1, K2, K3 and the preprocess backward once each."""
+    """A 3DGS step (make_train_step, SH 2, the densify offset) launches every
+    kernel once: the preprocess forward, K1, K2, K3, the preprocess backward
+    and the sparse Adam."""
     scene = synthetic.make_scene(n_gaussians=64, n_cams=2, width=64, height=48, seed=0, device=cuda)
     cfg = ttrainer.TrainerConfig(max_sh_degree=2, min_capacity=128)
     ts = ttrainer.init_train_state(scene.points, scene.colors, len(scene.cameras), cfg, cuda)
     step = ttrainer.make_train_step(cfg, RasterConfig(), 1.0, 2, (0.0, 0.0, 0.0))
     step(ts, scene.cameras[0], scene.images[0])
-    counts = [fn.launches for fn in ALL_KERNELS]
+    before = kernels.launches.copy()
     _, metrics = step(ts, scene.cameras[1], scene.images[1])
     torch.cuda.synchronize()
-    assert [fn.launches - n for fn, n in zip(ALL_KERNELS, counts)] == [1] * len(ALL_KERNELS)
+    assert kernels.launches - before == dict.fromkeys(LAUNCHERS, 1)
     assert np.isfinite(float(metrics["loss"]))
 
 
@@ -374,11 +377,11 @@ def test_sparse_adam_kernel_equals_the_plain_loop_bit_for_bit(case, cuda):
     """One launch for the six leaves; p, m and v equal the plain loop's on
     the card and the chain's in numpy float32, bit for bit."""
     got, want = adam_case_inputs(case, cuda), adam_case_inputs(case, cuda)
-    before = optim.sparse_adam_step.launches
+    before = kernels.launches.copy()
     optim.sparse_adam_step(*got)
     optim.sparse_adam_step_reference(*want)
     torch.cuda.synchronize()
-    assert optim.sparse_adam_step.launches == before + 1
+    assert kernels.launches - before == {"dogs_sparse_adam": 1}
     for a, b in zip(adam_leaves(got[0], got[2]), adam_leaves(want[0], want[2])):
         assert torch.equal(a, b)
     chain = ieee_chain(adam_case_arrays(case))
@@ -413,7 +416,7 @@ def test_sparse_adam_kernel_rejects_a_misaligned_or_strided_parameter(cuda):
     gradient is copied and the step equals the plain loop's."""
     params, grads, state, visible, lrs = adam_case_inputs("n131_mixed", cuda)
     n = visible.shape[0]
-    before = optim.sparse_adam_step.launches
+    before = kernels.launches.copy()
     xyz = params.xyz
     params.xyz = torch.nn.Parameter(torch.empty(n * 3 + 1, device=cuda)[1:].view(n, 3))
     with pytest.raises(ValueError, match="parameter of xyz must be contiguous and 16-byte aligned"):
@@ -426,7 +429,7 @@ def test_sparse_adam_kernel_rejects_a_misaligned_or_strided_parameter(cuda):
     params.quat = quat
     with pytest.raises(ValueError, match="CUDA"):
         optim.sparse_adam_step(params, grads, state, visible.cpu(), lrs)
-    assert optim.sparse_adam_step.launches == before
+    assert kernels.launches == before
     want = adam_case_inputs("n131_mixed", cuda)
     strided = torch.empty((3, n), device=cuda).t()
     strided.copy_(grads["xyz"])
@@ -447,14 +450,14 @@ def test_train_step_launches_the_sparse_adam_once(admm, cuda):
     extra = ({k: torch.zeros_like(getattr(p, k)) for k in PARAM_NAMES},
              {k: getattr(p, k).detach().clone() + 0.01 for k in PARAM_NAMES},
              {k: torch.tensor(0.5, device=cuda) for k in PARAM_NAMES}) if admm else ()
-    before = optim.sparse_adam_step.launches
+    before = kernels.launches["dogs_sparse_adam"]
     for i in range(3):
         xyz = p.xyz.detach().clone()
         ts, metrics = step(ts, scene.cameras[i % 2], scene.images[i % 2], *extra)
         moved = (p.xyz.detach() != xyz).any(1)
         assert int(moved.sum()) <= int(metrics["n_visible"])
     torch.cuda.synchronize()
-    assert optim.sparse_adam_step.launches == before + 3
+    assert kernels.launches["dogs_sparse_adam"] == before + 3
     assert int(metrics["n_visible"]) > 0 and np.isfinite(float(metrics["loss"]))
 
 
@@ -517,12 +520,12 @@ def test_importance_render_goes_through_the_kernels_and_matches_plain(cuda):
     model = tmodel.GaussianModelState(params_from_numpy(arrays, cuda), alive,
                                       *tmodel.fresh_stats(arrays["xyz"].shape[0], cuda))
     cam = look_at_camera(**view, device=cuda)
-    counts = [fn.launches for fn in ALL_KERNELS]
+    before = kernels.launches.copy()
     got = lightgaussian.importance_render(model, cam, RasterConfig(max_tiles_per_gaussian=MT), deg)
-    after = [fn.launches for fn in ALL_KERNELS]
+    launched = kernels.launches - before
     want = lightgaussian.importance_render(model, cam, RasterConfig(max_tiles_per_gaussian=MT, use_kernel=False), deg)
     torch.cuda.synchronize()
-    assert [a - b for a, b in zip(after, counts)] == [1] * len(ALL_KERNELS)
+    assert launched == dict.fromkeys(RENDER_LAUNCHERS, 1)
     scale = float(want.abs().max())
     assert scale > 0 and not got[~alive].any()
     torch.testing.assert_close(got / scale, want / scale, atol=GRAD_ATOL, rtol=0)
@@ -630,13 +633,13 @@ def test_scaffold_render_kernels_match_plain(scaffold_trainer):
     from dogs_tpu_torch.fields import scaffold
 
     tr = scaffold_trainer
-    counts = blend.blend_forward.launches
+    before = kernels.launches["dogs_blend_forward"]
     with torch.no_grad():
         got = scaffold.render_scaffold(tr.state.params, tr.cameras[0], SCAFFOLD_RASTER, alive=tr.state.alive)
         want = scaffold.render_scaffold(tr.state.params, tr.cameras[0],
                                         RasterConfig(max_tiles_per_gaussian=12, use_kernel=False),
                                         alive=tr.state.alive)
-    assert blend.blend_forward.launches == counts + 1 and got.bin_valid == want.bin_valid > 0
+    assert kernels.launches["dogs_blend_forward"] == before + 1 and got.bin_valid == want.bin_valid > 0
     mostly_close(got.image, want.image, 5e-3, 0.998, 0.1)
 
 
@@ -645,10 +648,10 @@ def test_scaffold_train_step_at_bench_shapes(scaffold_trainer):
     anchor_feat moved, each kernel launched once."""
     tr = scaffold_trainer
     before = tr.state.params.anchor_feat.detach().clone()
-    launches = [fn.launches for fn in ALL_KERNELS]
+    launches = kernels.launches.copy()
     m = tr.train_iteration(tr.state.step + 1)
     assert np.isfinite(float(m["loss"])) and m["bin_dropped"] == 0 and m["bin_pool_truncated"] == 0
-    assert [fn.launches for fn in ALL_KERNELS] == [n + 1 for n in launches]
+    assert kernels.launches - launches == dict.fromkeys(RENDER_LAUNCHERS, 1)
     assert float((tr.state.params.anchor_feat.detach() - before).abs().max()) > 0
 
 

@@ -121,8 +121,8 @@ def test_kernel_entry_point_raises_on_cpu_and_render_takes_plain_path():
         "                   look_at_camera(**synthetic.RANDOM_SCENE_VIEW, device='cpu'),\n"
         "                   active_sh_degree=2)\n"
         "assert out.image.shape == (56, 72, 3) and bool(torch.isfinite(out.image).all())\n"
-        "assert blend.blend_forward.launches == 0\n"
         "from dogs_tpu_torch import kernels\n"
+        "assert not kernels.launches, kernels.launches  # no kernel launched\n"
         "assert kernels.build_all.cache_info().currsize == 0  # nothing was built\n"
         "print('ok')\n"
     )
@@ -156,9 +156,7 @@ def test_backward_kernels_raise_on_cpu_and_render_backward_takes_plain_path():
         "                   active_sh_degree=2)\n"
         "grads = torch.autograd.grad(out.image.sum(), list(params.parameters()))\n"
         "assert all(bool(torch.isfinite(g).all()) for g in grads)\n"
-        "launches = (blend.blend_forward.launches, blend.blend_backward.launches,\n"
-        "            reduce.sorted_segment_sum.launches)\n"
-        "assert launches == (0, 0, 0), launches\n"
+        "assert not kernels.launches, kernels.launches  # no kernel launched\n"
         "assert kernels.build_all.cache_info().currsize == 0  # nothing was built\n"
         "print('ok')\n"
     )

@@ -354,7 +354,7 @@ def test_plain_render_path_is_project_gaussians_and_entry_matrix(use_kernel):
             ent = entry_matrix(proj, invd)
             nty, ntx = -(-h // 16), -(-w // 16)
             im, aa, dd = tiled._TileBlend.apply(ent, bg, bins.sorted_idx, bins.tile_starts, bins.order,
-                                                (nty, ntx, w, h), cfg)
+                                                (nty, ntx, w, h), cfg, False)
 
             def untile(v):
                 v = v[..., None] if v.dim() == 2 else v
