@@ -48,13 +48,21 @@ through the same three kernels) and the bench's modes, in phases:
               plain version and timed beside its byte bound at 500k and 4M;
               the sparse Adam kernel at 4M, every row visible and at bench
               camera 0's visibility, bit for bit the plain loop and timed
-              beside its byte bound and the plain loop; then a 4M step
-              (bench.py --scaling's largest) with each span's device time
-              over 8 profiled steps, dogs.step.adam among them.
+              beside its byte bound and the plain loop; the SSIM kernel pair
+              at 1152x864x3 and at Scaffold-GS's 1237x822x3, its map bit for
+              bit the plain ssim_map's, its gradient within twice the plain
+              f32 autograd's distance from float64, timed beside its byte
+              bound and the plain chain with its autograd, whose launches it
+              counts; then a 4M step (bench.py --scaling's largest) with each
+              span's device time over 8 profiled steps, dogs.step.adam among
+              them; the span lines count dogs.step.loss's and
+              dogs.step.backward's launches a step.
               Every counted path's launches include the pair's: one
               forward a render and one backward a K2 launch, so a path that
-              skips or repeats the preprocess fails; and exactly one sparse
+              skips or repeats the preprocess fails; exactly one sparse
               Adam a make_train_step step (none where no 3DGS step runs);
+              and one SSIM forward and one backward a loss (both training
+              steps), one forward alone an evaluated frame;
   6b. host loop  GaussianSplatTrainer from points on a small scene, 30
               steps with densify at 10/20/30 and the opacity reset at 20 (val
               PSNR must rise before the reset, n_alive must change, train
@@ -288,6 +296,10 @@ ADAM_ROW_FLOATS = 59
 # division, d_power, the ten gradients and their ten sums).
 FLOPS_VISITED = 16
 FLOPS_CONTRIB = {"blend_forward": 15, "blend_backward": 55}
+# The SSIM's flops an image element: forward the five blurs (11 + 11 taps, 2
+# flops a tap), the three products and the map's 20; backward three blurs and
+# the combination's 5.
+SSIM_FLOPS = {"forward": 5 * 44 + 3 + 20, "backward": 3 * 44 + 5}
 ROUNDS = 3  # serving rounds over the 8 bench cameras
 PSNR_MIN = 50.0
 TRAIN_STEPS = 30
@@ -418,7 +430,9 @@ def stage_line(stats: dict, device_s: float, n: int, names: list[str]) -> str:
             parts.append(f"{name} {1e3 * st.device_s / n:.3f} ms (self {1e3 * st.device_self_s / n:.3f}, "
                          f"{100 * st.device_s / step:.1f}%)")
     return (", ".join(parts) + f"; dogs.step {1e3 * step / n:.3f} ms a step, {100 * step / device_s:.2f}% of the "
-            f"segment's device time, {stats['dogs.step'].launches / n:.0f} launches and "
+            f"segment's device time, {stats['dogs.step'].launches / n:.0f} launches ("
+            f"dogs.step.loss {stats['dogs.step.loss'].launches / n:.0f}, dogs.step.backward "
+            f"{stats['dogs.step.backward'].launches / n:.0f}) and "
             f"{sum(st.count for k, st in stats.items() if k.startswith('dogs.sync.')) / n:.0f} host syncs a step")
 
 
@@ -466,7 +480,9 @@ def native_parser_times(path: str) -> tuple[float, float, int]:
 # keys of dogs_tpu_torch.kernels.launches.
 KERNEL_NAMES = {"dogs_blend_forward": "blend_forward", "dogs_blend_backward": "blend_backward",
                 "dogs_segment_sum": "sorted_segment_sum", "dogs_preprocess_forward": "preprocess_forward",
-                "dogs_preprocess_backward": "preprocess_backward", "dogs_sparse_adam": "sparse_adam_step"}
+                "dogs_preprocess_backward": "preprocess_backward", "dogs_sparse_adam": "sparse_adam_step",
+                "dogs_ssim_forward": "ssim_forward", "dogs_ssim_backward": "ssim_backward"}
+NOT_RASTER = ("sparse_adam_step", "ssim_forward", "ssim_backward")  # the optimizer's and the loss's
 
 
 def launch_counts(launches=None) -> dict:
@@ -492,9 +508,10 @@ def bench_launches(mode: str, views: int = 40, val_views: int = 2) -> dict:
     preprocess forward a teacher frame (bench.py's 8) and a val frame
     (`val_views` at step 0, at each VAL_EVERY boundary before the end, and
     at the end), and one K1 alone a budgeted GT render (the quality scene's
-    `views`), and one sparse Adam a 3DGS training step (none in the
+    `views`), one sparse Adam a 3DGS training step (none in the
     Scaffold-GS modes, which take their own dense Adam, nor for the
-    importance renders)."""
+    importance renders), and one SSIM forward and backward a training step
+    of either model (none for the importance renders)."""
     from dogs_tpu_torch.bench import VAL_EVERY
 
     def vals(steps):
@@ -513,8 +530,10 @@ def bench_launches(mode: str, views: int = 40, val_views: int = 2) -> dict:
         "--scaffold-quality": (BENCH_SCAFFOLD_QUALITY_STEPS, vals(BENCH_SCAFFOLD_QUALITY_STEPS), views),
     }[mode]
     adam = {"--scaffold": 0, "--scaffold-quality": 0, "--quality-admm": BENCH_QUALITY_STEPS}.get(mode, steps)
+    losses = BENCH_QUALITY_STEPS if mode == "--quality-admm" else steps
     return {"blend_forward": steps + frames + budgeted, "blend_backward": steps, "sorted_segment_sum": steps,
-            "preprocess_forward": steps + frames, "preprocess_backward": steps, "sparse_adam_step": adam}
+            "preprocess_forward": steps + frames, "preprocess_backward": steps, "sparse_adam_step": adam,
+            "ssim_forward": losses, "ssim_backward": losses}
 
 
 def bench_phase(h) -> None:
@@ -579,8 +598,10 @@ def bench_phase(h) -> None:
                 print(f"[bench] {text}")
             want = bench_launches(mode)
             adam = want.pop("sparse_adam_step")
+            losses = (want.pop("ssim_forward"), want.pop("ssim_backward"))
             launches[mode] = h.add_counts(f"bench {mode}", list(h.counted) if mode != "--consensus" else [],
-                                          budgeted=want["blend_forward"] - want["preprocess_forward"], adam=adam)
+                                          budgeted=want["blend_forward"] - want["preprocess_forward"], adam=adam,
+                                          ssim_counts=losses)
             check(launches[mode] == want, f"bench {mode}: launches {launches[mode]}, expected {want}")
             messages = [r.getMessage() for r in records]
             check(len(lines) == {"--scaling": 4, "--consensus": 3}.get(mode, 1),
@@ -789,7 +810,7 @@ def scaffold_phase(h) -> None:
     try:
         trainer.train(num_iterations=SCAFFOLD_STEPS, log_every=50)
         torch.cuda.synchronize()
-        counts = h.add_counts("scaffold", list(counted))
+        counts = h.add_counts("scaffold", list(counted), ssim_counts=(SCAFFOLD_STEPS, SCAFFOLD_STEPS))
         peak_mb = max([torch.cuda.max_memory_allocated(dev)] + peaks) / 2**20
     finally:
         sc.grow_and_prune_anchors = grow
@@ -1537,13 +1558,13 @@ def main() -> int:
     from dogs_tpu_torch.raster import blend, preprocess, reduce
     from dogs_tpu_torch.raster.binning import build_tile_bins
     from dogs_tpu_torch.raster.projection import project_gaussians
-    from dogs_tpu_torch.raster.ssim import ssim
+    from dogs_tpu_torch.raster.ssim import ssim, ssim_backward, ssim_forward, ssim_map
     from dogs_tpu_torch.raster.tiled import RasterConfig, entry_matrix, render_tiled
     from dogs_tpu_torch.train import optim, schedule
     from dogs_tpu_torch.train import trainer as trainer_mod
     from dogs_tpu_torch.tools import colmap_scene
     from dogs_tpu_torch.train.checkpoint import CheckpointManager, load_train_state, train_state_arrays
-    from dogs_tpu_torch.utils import png
+    from dogs_tpu_torch.utils import png, trace
     from dogs_tpu_torch.utils.config import load_config
 
     dev = torch.device("cuda", 0)
@@ -1555,24 +1576,31 @@ def main() -> int:
     def reset_counts():
         kernels.launches.clear()
 
-    def add_counts(path: str, required, budgeted: int = 0, adam: int = 0) -> dict:
+    def add_counts(path: str, required, budgeted: int = 0, adam: int = 0, ssim_counts=None) -> dict:
         """Read the counts of a main-path run; fail if a raster kernel it
         needs was never launched, if a render did not go through the
         preprocess pair: one forward a K1 launch, one backward a K2 launch
         (`budgeted`: K1 launches of bench.py's budgeted GT, which blend
-        entries of the plain projection), or unless the sparse Adam ran
-        exactly `adam` times, one launch a make_train_step step. Returns the
-        raster kernels' counts."""
+        entries of the plain projection), unless the sparse Adam ran
+        exactly `adam` times, one launch a make_train_step step, or unless
+        the SSIM forward and backward ran `ssim_counts` = (forward, backward) times
+        (by default `adam` each: one of each a make_train_step loss).
+        Returns the raster kernels' counts."""
         got = launch_counts()
         adam_n = got.pop("sparse_adam_step")
-        print(f"[{path}] kernel launches: {got}, sparse_adam_step {adam_n}")
+        ssim_n = (got.pop("ssim_forward"), got.pop("ssim_backward"))
+        print(f"[{path}] kernel launches: {got}, sparse_adam_step {adam_n}, ssim_forward {ssim_n[0]}, "
+              f"ssim_backward {ssim_n[1]}")
         for name in required:
-            check(name == "sparse_adam_step" or got[name] > 0, f"{path}: {name} was not launched")
+            check(name in NOT_RASTER or got[name] > 0, f"{path}: {name} was not launched")
         check(got["preprocess_forward"] == got["blend_forward"] - budgeted
               and got["preprocess_backward"] == got["blend_backward"],
               f"{path}: launches {got}: not one preprocess forward a render and one backward a K2")
         check(adam_n == adam, f"{path}: sparse_adam_step launched {adam_n} times, expected one per train step "
               f"({adam})")
+        want_ssim = (adam, adam) if ssim_counts is None else tuple(ssim_counts)
+        check(ssim_n == want_ssim, f"{path}: the SSIM pair launched {ssim_n} times (forward, backward), expected "
+              f"{want_ssim}")
         for name, c in launch_counts().items():
             counted[name] += c
         return got
@@ -1649,7 +1677,7 @@ def main() -> int:
             dict(synthetic.RANDOM_SCENE_VIEW, width=200, height=130, fx=120.0, fy=120.0), 2,
         ),
     }
-    max_err = dict.fromkeys(("fwd", "bwd", "seg", "pre_fwd", "pre_bwd", "adam"), 0.0)
+    max_err = dict.fromkeys(("fwd", "bwd", "seg", "pre_fwd", "pre_bwd", "adam", "ssim_fwd", "ssim_bwd"), 0.0)
     with torch.no_grad():
         for name, (arrays, view, deg) in small.items():
             params = params_from_numpy(arrays, dev)
@@ -1746,7 +1774,7 @@ def main() -> int:
                 torch.cuda.synchronize()
                 frame_ms.append((time.perf_counter() - t0) * 1e3)
         metrics = evaluator.eval(cams, gts, split="val")
-        serve_counts = add_counts("serve", ["blend_forward"])
+        serve_counts = add_counts("serve", ["blend_forward"], ssim_counts=(len(cams), 0))
         with open(f"{tmp}/val/metrics.json") as f:
             written = json.load(f)
     check(serve_counts["blend_forward"] == (ROUNDS + 1) * len(cams),
@@ -2047,6 +2075,78 @@ def main() -> int:
         bounds["sparse_adam_step"] = (bound, "bytes")
         library_ms["sparse_adam_step"] = None  # no one PyTorch call computes the masked update
         del vis_cam0
+
+        # The SSIM pair at the bench frame and at Scaffold-GS's (1237x822): a
+        # random target and a noisy copy as the render. The map bit for bit
+        # the plain ssim_map's, the gradient of 1 - 0.2 ssim within twice the
+        # plain f32 autograd's distance from float64, two runs bitwise equal;
+        # then each kernel's time beside its byte bound (forward: x and y
+        # read, the three derivative maps written; backward: those five read,
+        # the gradient written; SSIM_FLOPS for the operations), and the plain
+        # chain's time and launches, forward and its autograd backward.
+        ssim_times = {}
+        for label, (hh, ww) in (("1152x864", (synthetic.BENCH_HEIGHT, synthetic.BENCH_WIDTH)),
+                                ("1237x822", (822, 1237))):
+            gen = torch.Generator(device=dev).manual_seed(23)
+            target = torch.rand((hh, ww, 3), generator=gen, device=dev)
+            img = torch.clamp(target + 0.05 * torch.randn((hh, ww, 3), generator=gen, device=dev), 0.0, 1.0)
+            g = torch.tensor(-0.2, device=dev)
+            loss_k, dmap, smap = ssim_forward(img, target, keep=True, want_map=True)
+            dx = ssim_backward(img, target, dmap, g)
+            want_map = ssim_map(img, target)
+            check(torch.equal(smap.view(torch.int32), want_map.view(torch.int32)),
+                  f"SSIM at {label}: the kernel's map differs from ssim_map")
+            again = ssim_forward(img, target, keep=True)
+            check(torch.equal(again[0], loss_k) and torch.equal(ssim_backward(img, target, again[1], g), dx),
+                  f"SSIM at {label}: two runs differ")
+            with torch.enable_grad():
+                grads = []
+                for dt in (torch.float32, torch.float64):
+                    x = img.to(dt).requires_grad_(True)
+                    grads.append(torch.autograd.grad(-0.2 * ssim_map(x, target.to(dt)).mean(), [x])[0])
+            err, plain_err = (float((v.double() - grads[1]).abs().max()) for v in (dx, grads[0]))
+            check(err <= 2.0 * plain_err, f"SSIM at {label}: gradient {err:.3e} from float64, plain f32 {plain_err:.3e}")
+            max_err["ssim_fwd"] = max(max_err["ssim_fwd"], float((smap - want_map).abs().max()))
+            max_err["ssim_bwd"] = max(max_err["ssim_bwd"], float((dx - grads[0]).abs().max()))
+            del grads, again, want_map, smap
+
+            def plain_fwd():
+                return ssim_map(img, target).mean()
+
+            def plain_fwd_bwd():
+                with torch.enable_grad():
+                    x = img.clone().requires_grad_(True)
+                    with trace.span("dogs.smoke.ssim_forward"):
+                        loss = ssim_map(x, target).mean()
+                    with trace.span("dogs.smoke.ssim_backward"):
+                        torch.autograd.grad(loss, [x])
+
+            ms = []
+            for _ in range(2):
+                ms += [cuda_ms(lambda: ssim_forward(img, target, keep=True), 100),
+                       cuda_ms(lambda: ssim_backward(img, target, dmap, g), 100),
+                       cuda_ms(plain_fwd, 10), cuda_ms(plain_fwd_bwd, 10)]
+            fwd_ms, bwd_ms = min(ms[0], ms[4]), min(ms[1], ms[5])
+            plain_f, plain_fb = min(ms[2], ms[6]), min(ms[3], ms[7])
+            plain_stats, _ = span_stages(lambda i: plain_fwd_bwd(), 1)
+            plain_launches = tuple(plain_stats[f"dogs.smoke.ssim_{k}"].launches for k in ("forward", "backward"))
+            elems = img.numel()
+            bound = {k: max(4 * elems * moved / PEAK_BYTES_PER_S, elems * SSIM_FLOPS[k] / PEAK_F32_FLOPS) * 1e3
+                     for k, moved in (("forward", 5), ("backward", 6))}
+            ssim_times[label] = dict(forward=(fwd_ms, plain_f, bound["forward"]),
+                                     backward=(bwd_ms, plain_fb - plain_f, bound["backward"]))
+            print(f"[kernels] SSIM pair at {label}x3: forward {ms[0]:.4f}/{ms[4]:.4f} ms (bound {bound['forward']:.4f}, "
+                  f"share {bound['forward'] / fwd_ms:.3f}), backward {ms[1]:.4f}/{ms[5]:.4f} ms (bound "
+                  f"{bound['backward']:.4f}, share {bound['backward'] / bwd_ms:.3f}); plain forward "
+                  f"{ms[2]:.3f}/{ms[6]:.3f} ms, forward + autograd backward {ms[3]:.3f}/{ms[7]:.3f} ms, "
+                  f"{plain_launches[0]} + {plain_launches[1]} launches (the kernels: 2 + 1); loss {float(loss_k):.7f} "
+                  f"(plain mean {float(plain_fwd()):.7f}); the map bit for bit ssim_map's; gradient {err:.3e} "
+                  f"from float64 (plain f32 {plain_err:.3e})")
+            del dmap, dx, img, target
+        for k in ("forward", "backward"):
+            kernel_ms[f"ssim_{k}"], plain_ms[f"ssim_{k}"], b = ssim_times["1152x864"][k]
+            bounds[f"ssim_{k}"] = (b, "bytes")
+            library_ms[f"ssim_{k}"] = None  # no one PyTorch call computes the SSIM in f32 (conv2d runs TF32)
     del ts, train_model, step
 
     # A train_4m-sized step (bench.py --scaling's largest: 4M Gaussians, SH
@@ -2387,7 +2487,7 @@ def main() -> int:
         pruned_eval = GaussianSplatEvaluator(lg_model, cfg, EvalConfig(output_dir=tmp, save_images=False))
         reset_counts()
         pruned_metrics = pruned_eval.eval(cams, gts, split="val")
-        pe_counts = add_counts("pruned eval", ["blend_forward"])
+        pe_counts = add_counts("pruned eval", ["blend_forward"], ssim_counts=(len(cams), 0))
         check(pe_counts["blend_forward"] == len(cams), f"pruned eval: {pe_counts['blend_forward']} K1 launches")
         t0 = time.perf_counter()
         pruned_eval.export(os.path.join(tmp, "export"))
@@ -3213,6 +3313,9 @@ def main() -> int:
         "preprocess_backward": ("dogs_tpu_torch/csrc/preprocess.cu", None, "pre_bwd"),
         # No TPU kernel: dogs_tpu leaves the sparse Adam to XLA's fusion. Its times are at 4M.
         "sparse_adam_step": ("dogs_tpu_torch/csrc/sparse_adam.cu", None, "adam"),
+        # No TPU kernel: dogs_tpu leaves the SSIM to XLA's fusion. Its times are at 1152x864x3.
+        "ssim_forward": ("dogs_tpu_torch/csrc/ssim.cu", None, "ssim_fwd"),
+        "ssim_backward": ("dogs_tpu_torch/csrc/ssim.cu", None, "ssim_bwd"),
     }
     print(json.dumps({"kernels": [
         {
@@ -3233,6 +3336,9 @@ def main() -> int:
             **({"ms_cam0": adam_times["cam0"][0], "plain_ms_cam0": adam_times["cam0"][1],
                 "bound_ms_cam0": adam_times["cam0"][2], "visible_cam0": adam_times["cam0"][3]}
                if name == "sparse_adam_step" else {}),
+            **(dict(zip(("ms_1237x822", "plain_ms_1237x822", "bound_ms_1237x822"),
+                        ssim_times["1237x822"][name[len("ssim_"):]]))
+               if name.startswith("ssim_") else {}),
         }
         for name, (src, tpu, key) in sources.items()
     ]}))

@@ -33,15 +33,15 @@ import torch
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-KERNELS = ("blend_forward", "blend_backward", "segment_sum", "preprocess", "sparse_adam")
+KERNELS = ("blend_forward", "blend_backward", "segment_sum", "preprocess", "sparse_adam", "ssim")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
-# Flags of one source beyond NVCC_FLAGS: the preprocess and the sparse Adam
-# round each multiply and add on their own, as the plain PyTorch versions'
-# separate operations do.
-EXTRA_FLAGS = {"preprocess": ("-fmad=false",), "sparse_adam": ("-fmad=false",)}
+# Flags of one source beyond NVCC_FLAGS: the preprocess, the sparse Adam and
+# the SSIM round each multiply and add on their own, as the plain PyTorch
+# versions' separate operations do.
+EXTRA_FLAGS = {"preprocess": ("-fmad=false",), "sparse_adam": ("-fmad=false",), "ssim": ("-fmad=false",)}
 
 
 @dataclasses.dataclass(frozen=True)

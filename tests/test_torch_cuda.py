@@ -1,5 +1,5 @@
 """CUDA lane: the hand-written kernels (blend forward, blend backward,
-segment sum, the preprocess pair, the sparse Adam) against their plain
+segment sum, the preprocess pair, the sparse Adam, the SSIM pair) against their plain
 PyTorch versions on the card, the LightGaussian importance render and the Scaffold-GS render
 and step through them, and the densify surgery, LPIPS, the windowed KNN, the appearance mask
 CNN and the Scaffold-GS decode on the card against the CPU. The kernel
@@ -30,6 +30,7 @@ from dogs_tpu_torch.fields import model as tmodel
 from dogs_tpu_torch.raster import blend, preprocess, reduce
 from dogs_tpu_torch.raster.binning import build_tile_bins
 from dogs_tpu_torch.raster.projection import project_gaussians
+from dogs_tpu_torch.raster.ssim import ssim, ssim_backward, ssim_forward, ssim_map
 from dogs_tpu_torch.raster.tiled import RasterConfig, entry_matrix, render_tiled
 from dogs_tpu_torch.train import optim
 from dogs_tpu_torch.train import trainer as ttrainer
@@ -43,13 +44,19 @@ from test_torch_sparse_adam import CASES as ADAM_CASES
 from test_torch_sparse_adam import case_arrays as adam_case_arrays
 from test_torch_sparse_adam import case_inputs as adam_case_inputs
 from test_torch_sparse_adam import ieee_chain
+from test_torch_ssim_kernel import CASES as SSIM_CASES
+from test_torch_ssim_kernel import G as SSIM_G
+from test_torch_ssim_kernel import assert_gradient_within_the_bar as assert_ssim_gradient_within_the_bar
+from test_torch_ssim_kernel import case_tensors as ssim_case_tensors
 
 pytestmark = pytest.mark.cuda
 # Every hand-written kernel's C launcher, read from the sources: the keys of
-# `kernels.launches`. A render and its backward launch all but the optimizer's.
+# `kernels.launches`. A render and its backward launch all but the optimizer's
+# and the loss's.
 LAUNCHERS = tuple(sorted(name for path in kernels.CSRC.glob("*.cu")
                          for name in re.findall(r'extern "C" int (\w+)\(', path.read_text())))
-RENDER_LAUNCHERS = tuple(name for name in LAUNCHERS if name != "dogs_sparse_adam")
+SSIM_LAUNCHERS = ("dogs_ssim_forward", "dogs_ssim_backward")
+RENDER_LAUNCHERS = tuple(name for name in LAUNCHERS if name not in ("dogs_sparse_adam",) + SSIM_LAUNCHERS)
 ATOL = 3e-4  # forward parity bar of tests/test_pallas_blend.py
 GRAD_ATOL = 2e-3  # max-normalized gradient bar of tests/test_pallas_blend.py:58-61
 MT = 36
@@ -354,8 +361,8 @@ def test_preprocess_kernels_on_a_scaffold_decode(scaffold_trainer):
 
 def test_train_step_launches_each_kernel_once(cuda):
     """A 3DGS step (make_train_step, SH 2, the densify offset) launches every
-    kernel once: the preprocess forward, K1, K2, K3, the preprocess backward
-    and the sparse Adam."""
+    kernel once: the preprocess forward, K1, the SSIM forward, the SSIM
+    backward, K2, K3, the preprocess backward and the sparse Adam."""
     scene = synthetic.make_scene(n_gaussians=64, n_cams=2, width=64, height=48, seed=0, device=cuda)
     cfg = ttrainer.TrainerConfig(max_sh_degree=2, min_capacity=128)
     ts = ttrainer.init_train_state(scene.points, scene.colors, len(scene.cameras), cfg, cuda)
@@ -459,6 +466,101 @@ def test_train_step_launches_the_sparse_adam_once(admm, cuda):
     torch.cuda.synchronize()
     assert kernels.launches["dogs_sparse_adam"] == before + 3
     assert int(metrics["n_visible"]) > 0 and np.isfinite(float(metrics["loss"]))
+
+
+SSIM_CARD_CASES = list(SSIM_CASES) + ["bench_864x1152x3"]
+
+
+def ssim_inputs(case, dev):
+    """A CPU test's case, or a bench frame (1152x864) and a noisy copy."""
+    if case != "bench_864x1152x3":
+        return ssim_case_tensors(case, dev)
+    rng = np.random.RandomState(21)
+    a = rng.rand(864, 1152, 3)
+    b = np.clip(a + rng.randn(*a.shape) * 0.05, 0.0, 1.0)
+    return tuple(torch.as_tensor(v.astype(np.float32), device=dev) for v in (a, b))
+
+
+@pytest.mark.parametrize("case", SSIM_CARD_CASES)
+def test_ssim_kernel_map_equals_ssim_map_bit_for_bit(case, cuda):
+    """One forward launch: its map equals the plain `ssim_map`'s on the card
+    bit for bit, and its loss is the map's mean (no further from the float64
+    mean than the plain f32 mean, or 1e-7)."""
+    img1, img2 = ssim_inputs(case, cuda)
+    before = kernels.launches.copy()
+    loss, dmap, smap = ssim_forward(img1, img2, keep=True, want_map=True)
+    torch.cuda.synchronize()
+    assert kernels.launches - before == {"dogs_ssim_forward": 1}
+    want = ssim_map(img1, img2)
+    assert torch.equal(smap.view(torch.int32), want.view(torch.int32))
+    assert dmap.shape == (3,) + img1.shape
+    mean64 = float(ssim_map(img1.double(), img2.double()).mean())
+    assert abs(float(loss) - mean64) <= max(abs(float(want.mean()) - mean64), 1e-7)
+
+
+@pytest.mark.parametrize("case", SSIM_CARD_CASES)
+def test_ssim_kernel_gradient_within_the_bar_and_deterministic(case, cuda):
+    """`ssim` through autograd on the card: one forward and one backward
+    launch a call; the gradient of 1 - 0.2 ssim no further from float64
+    autograd than twice the plain f32 autograd (the CPU test's bar); two
+    calls give the same loss and gradient bit for bit."""
+    img1, img2 = ssim_inputs(case, cuda)
+    runs = []
+    before = kernels.launches.copy()
+    for _ in range(2):
+        x = img1.clone().requires_grad_(True)
+        loss = 1.0 + SSIM_G * ssim(x, img2)
+        (g,) = torch.autograd.grad(loss, [x])
+        runs.append((loss, g))
+    torch.cuda.synchronize()
+    assert kernels.launches - before == dict.fromkeys(SSIM_LAUNCHERS, 2)
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    assert_ssim_gradient_within_the_bar(runs[0][1], img1, img2)
+
+
+def test_ssim_forward_alone_keeps_nothing_and_agrees(cuda):
+    """Without a gradient asked for (the evaluator's call), `ssim` launches
+    the forward alone, keeps no derivative maps, and gives the same loss."""
+    img1, img2 = ssim_inputs("batch_2x19x33x3", cuda)
+    before = kernels.launches.copy()
+    with torch.no_grad():
+        got = ssim(img1, img2)
+    assert kernels.launches - before == {"dogs_ssim_forward": 1}
+    loss, dmap, smap = ssim_forward(img1, img2)
+    assert dmap is None and smap is None and torch.equal(got, loss)
+
+
+def test_ssim_on_the_card_raises_on_what_the_kernels_do_not_take(cuda):
+    """f64, window 9, a target that requires grad and a CPU target raise
+    before any launch; `ssim_forward` itself raises on a strided image."""
+    img1, img2 = ssim_inputs("noisy_37x45x3", cuda)
+    before = kernels.launches.copy()
+    with pytest.raises(ValueError, match="float32"):
+        ssim(img1.double(), img2.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        ssim_forward(img1.transpose(0, 1), img2.transpose(0, 1))
+    with pytest.raises(ValueError, match="window 9"):
+        ssim(img1, img2, window_size=9)
+    with pytest.raises(ValueError, match="img2 is the target"):
+        ssim(img1.clone().requires_grad_(True), img2.clone().requires_grad_(True))
+    with pytest.raises(ValueError, match="CUDA device"):
+        ssim(img1, img2.cpu())
+    assert kernels.launches == before
+
+
+def test_ssim_takes_a_strided_crop_as_its_contiguous_copy(cuda):
+    """A crop of a larger render and target (the Scaffold-GS cell's targets
+    at 1237x822 are crops of a 16-pixel-tiled render): the same loss and
+    gradient, bit for bit, as their contiguous copies."""
+    big1, big2 = ssim_inputs("uncorrelated_64x96x3", cuda)
+    crop1, crop2 = big1[:45, :70], big2[:45, :70]
+    assert not (crop1.is_contiguous() or crop2.is_contiguous())
+    runs = []
+    for x, y in ((big1.clone()[:45, :70], crop2), (crop1.contiguous(), crop2.contiguous())):
+        x.requires_grad_(True)
+        loss = ssim(x, y)
+        runs.append((loss, torch.autograd.grad(loss, [x])[0]))
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
 
 
 def densify_inputs(device):
@@ -645,13 +747,13 @@ def test_scaffold_render_kernels_match_plain(scaffold_trainer):
 
 def test_scaffold_train_step_at_bench_shapes(scaffold_trainer):
     """One step at bench shapes: a finite loss, nothing dropped by binning,
-    anchor_feat moved, each kernel launched once."""
+    anchor_feat moved, each kernel launched once (the SSIM pair included)."""
     tr = scaffold_trainer
     before = tr.state.params.anchor_feat.detach().clone()
     launches = kernels.launches.copy()
     m = tr.train_iteration(tr.state.step + 1)
     assert np.isfinite(float(m["loss"])) and m["bin_dropped"] == 0 and m["bin_pool_truncated"] == 0
-    assert kernels.launches - launches == dict.fromkeys(RENDER_LAUNCHERS, 1)
+    assert kernels.launches - launches == dict.fromkeys(RENDER_LAUNCHERS + SSIM_LAUNCHERS, 1)
     assert float((tr.state.params.anchor_feat.detach() - before).abs().max()) > 0
 
 
